@@ -1,0 +1,491 @@
+"""Device-resident cohort engine: the paper's protocol (Algorithms 1-4)
+with the whole state on the card.
+
+``DeviceCohortState`` — the ``[C, D]`` population blocks, per-client
+counters, message rings and telemetry counters — lives on the engine's
+device for the whole run.  One protocol tick is two phases:
+
+1. **Integer phase.**  The protocol's integer state (rounds ``i``,
+   offsets ``h``, freshest-seen ``k``, fixed-point ``credit``, the H-count
+   and broadcast rings, the census counters) never depends on a float
+   value, so the whole tick's integer update runs first, as tensor ops
+   on the device: bucket-pop counts, the broadcast cascade (unrolled
+   ``R`` masked steps — it can fire at most ``R`` times, each zeroing a
+   distinct H slot), ISRRECEIVE's freshest-broadcast pick, credit
+   accrual, round completion, and, with ``fuse_ticks``, the next tick's
+   block preview.  The branch predicates are packed into one small
+   tensor and read by the host: **one host sync per tick**.
+2. **Float phase.**  The host enqueues only the ``[C, D]`` work the
+   predicates call for — the fused kernels of ``repro_torch.kernels``
+   (``bucket_apply`` every tick, reading its flag on the device;
+   ``tick_deliver`` on delivery ticks; the SGD block on block ticks;
+   ``cohort_clip_noise`` + ``tick_scatter`` on completion ticks) — and
+   moves on to the next tick's integer phase while the card works.
+
+Host-known scalars (the tick number, the pre-tick ``server_k``) index
+the rings directly, and every constant the tick needs is a device
+tensor built once, so a tick makes no host-to-device copy.
+
+The op census and the ``fuse_ticks`` iteration census are exact against
+the reference (``repro/cohort/device.py``): a loop iteration is one
+tick plus, when the int-only preview says the next tick runs no block,
+that next tick.  Ported: the paper strategy, the constant-tick
+``uniform`` plan (no overflow bucket) and operand DP noise.  FedAsync /
+FedBuff (ROADMAP Queue 1 item 8), sampled latency, churn and the
+overflow bucket (item 7) and ``dp_rng="in_kernel"`` (Queue 2 item 5)
+raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.analysis.salts import NOISE_SALT
+from repro_torch.cohort.state import (FRAC_BITS, DeviceCohortState,
+                                      default_max_ticks, next_pow2,
+                                      pad_sizes, speed_accrual)
+from repro_torch.core.strategies import get_strategy
+from repro_torch.core.tasks import validate_dp_knobs
+from repro_torch.kernels.cohort_dp import cohort_clip_noise
+from repro_torch.kernels.tick_fused import (bucket_apply, tick_deliver,
+                                            tick_scatter)
+from repro_torch.scenarios import (ScenarioPlan, get_scenario,
+                                   legacy_latency_scenario)
+from repro_torch.telemetry import (STALE_BINS, PhaseTimer, build_report,
+                                   open_trace, update_msg_bytes)
+from repro_torch.telemetry.costs import N_OPS, OP_RING_SCATTERS
+
+I32 = torch.int32
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card.  Without CUDA, only an explicit
+    ``device="cpu"`` runs (on the plain PyTorch versions of the kernels)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card; pass "
+                "device='cpu' to run the plain PyTorch versions instead")
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device={device!r} but CUDA is unavailable")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class TickPreds(NamedTuple):
+    """The per-tick host read: what the float phase must run."""
+    cascades: int
+    deliver_rows: int
+    any_block: int
+    any_done: int
+    next_no_block: int      # fuse preview: the next tick runs no block
+
+
+class DeviceCohortEngine:
+    """The reference engine's constructor vocabulary, on ``ctask.device``."""
+
+    def __init__(self, ctask, *, sizes_per_client,
+                 round_stepsizes: Sequence[float], d: int = 1,
+                 speeds: Optional[Sequence[float]] = None,
+                 latency=None, seed: int = 0, block: int = 64,
+                 dp_sigma: float = 0.0, dp_clip: float = 0.0,
+                 dp_round_clip: float = 0.0, scenario=None, trace=None,
+                 dp_delta: float = 1e-5, strategy=None,
+                 dp_rng: str = "operand", fuse_ticks: bool = True):
+        self.ctask = ctask
+        self.device = dev = ctask.device
+        C = self.C = ctask.C
+        self.D = ctask.D
+        self.d_gate = int(d)
+        self.block = int(block)
+        if (2 * self.block) << FRAC_BITS >= 2 ** 31:
+            raise ValueError(
+                f"block={block} overflows the engine's int32 fixed-point "
+                f"credit (max {(2 ** 30 >> FRAC_BITS) - 1})")
+        self.seed = int(seed)
+        if scenario is not None and latency is not None:
+            raise ValueError("pass either scenario= or latency=, not both")
+        scn = (get_scenario(scenario) if scenario is not None
+               else legacy_latency_scenario(latency))
+        if speeds is None:
+            speeds = scn.speeds(C, seed)
+        self.speeds = np.asarray(speeds if speeds is not None
+                                 else np.ones(C), np.float64)
+        if len(self.speeds) != C:
+            raise ValueError(f"need {C} speeds, got {len(self.speeds)}")
+        self.dt = self.block / float(self.speeds.max())
+        self._plan = ScenarioPlan(scn, C=C, seed=self.seed, dt=self.dt,
+                                  device=dev)
+        self.sizes = pad_sizes(sizes_per_client, C)
+        self.etas = np.asarray(round_stepsizes, np.float64)
+
+        validate_dp_knobs(dp_clip, dp_sigma, "DeviceCohortEngine")
+        self.dp_sigma = float(dp_sigma)
+        self.dp_clip = float(dp_clip)
+        self.dp_round_clip = float(dp_round_clip)
+        if dp_rng == "in_kernel":
+            raise NotImplementedError(
+                "dp_rng='in_kernel' is not ported yet (ROADMAP Queue 2 "
+                "item 5: the in-kernel-PRNG clip+noise kernel)")
+        if dp_rng != "operand":
+            raise ValueError(f"dp_rng={dp_rng!r} not in "
+                             f"('operand', 'in_kernel')")
+        self.dp_rng = dp_rng
+        self.dp_on = self.dp_sigma > 0.0 or self.dp_round_clip > 0.0
+        self.noise_scale = self.dp_clip * self.dp_sigma
+        self.fuse_ticks = bool(fuse_ticks)
+        self.dp_delta = float(dp_delta)
+        self._trace = open_trace(trace)
+
+        self.L = self._plan.ring_ticks
+        self.F = 0
+        self.Q = 1
+        self.R = next_pow2(self.d_gate + 2)
+        self.B = next_pow2(self.d_gate + 2)
+        self.strategy = get_strategy(strategy)
+        self.b_stat = next_pow2(
+            max(1, min(2 * self.block, int(self.sizes.max()))))
+
+        # constants of the tick, built once on the device
+        R, L = self.R, self.L
+        self._etas_dev = torch.tensor(self.etas, dtype=torch.float32,
+                                      device=dev)
+        self._sizes_dev = torch.tensor(self.sizes, dtype=I32, device=dev)
+        self._accrual_dev = torch.tensor(
+            speed_accrual(self.speeds, self.block), dtype=I32, device=dev)
+        tau = (np.arange(R)[:, None] - np.arange(R)[None, :]) & (R - 1)
+        self._tau_bins = torch.tensor(np.minimum(tau, STALE_BINS - 1),
+                                      dtype=torch.int64, device=dev)
+        self._ar_L = torch.arange(L, dtype=I32, device=dev)
+        self._ar_R = torch.arange(R, dtype=I32, device=dev)
+        self._ones1 = torch.ones((1,), dtype=torch.float32, device=dev)
+        self._true = torch.ones((), dtype=torch.bool, device=dev)
+        self._iter_inc = torch.tensor([[1, 0], [1, 1]], dtype=I32,
+                                      device=dev)
+        self._tick_one = torch.ones((), dtype=I32, device=dev)
+        self._tick_zero = torch.zeros((), dtype=I32, device=dev)
+        self._noise_base = prng.PRNGKey(self.seed ^ NOISE_SALT)   # CPU
+        self.upd_bytes = update_msg_bytes(self.D)
+        #: host reads made by the tick loop: one per tick, one per segment
+        self.host_syncs = {"tick": 0, "segment": 0}
+        self.state = self._init_state()
+        self.history: List[Dict[str, float]] = []
+
+    def _init_state(self) -> DeviceCohortState:
+        C, D, L, R, B, Q = self.C, self.D, self.L, self.R, self.B, self.Q
+        dev = self.device
+        v0 = self.ctask.init_flat().to(torch.float32)
+
+        def z(*shape, dtype=I32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        f32 = torch.float32
+        return DeviceCohortState(
+            w=v0[None, :].repeat(C, 1), U=z(C, D, dtype=f32), v=v0.clone(),
+            i=z(C), h=z(C), k=z(C), credit=z(C), server_k=z(), tick=z(),
+            upd_vec=z(L, D, dtype=f32), upd_cnt=z(L, R), h_counts=z(R),
+            bc_v=z(B, D, dtype=f32), bc_k=z(B), bc_at=z(B, C),
+            ovf_vec=z(Q, D, dtype=f32), ovf_at=z(Q), ovf_cnt=z(Q, R),
+            err=z(), messages=z(), broadcasts=z(), part=z(C),
+            bytes_up=z(C), stale_hist=z(STALE_BINS), upd_ks=z(L, R),
+            ovf_ks=z(Q, R), ovf_hwm=z(), far_msgs=z(),
+            upd_kvec=z(1, 1, 1, dtype=f32), ovf_kvec=z(1, 1, 1, dtype=f32),
+            buf_vec=z(1, dtype=f32), buf_cnt=z(), ops=z(N_OPS), iters=z(2))
+
+    # -- one protocol tick --------------------------------------------------
+    def _tick(self, st: DeviceCohortState, t: int, sk0: int):
+        """Advance ``st`` by tick ``t`` (= st.tick + 1); ``sk0`` is the
+        pre-tick ``server_k``.  Returns the new state and the predicates."""
+        C, L, R, B = self.C, self.L, self.R, self.B
+        d_gate, block = self.d_gate, self.block
+        sizes, accrual = self._sizes_dev, self._accrual_dev
+        i_cap = sizes.shape[1] - 1
+
+        # ---- 1) integer phase ------------------------------------------
+        # server: pop this tick's arrival slot, merge H counts
+        slot = t & (L - 1)
+        cnt_row = st.upd_cnt[slot]
+        ks_row = st.upd_ks[slot]
+        has_arr = cnt_row.sum() > 0
+        upd_cnt = st.upd_cnt.clone()
+        upd_cnt[slot] = 0
+        upd_ks = st.upd_ks.clone()
+        upd_ks[slot] = 0
+        h_counts = st.h_counts + cnt_row
+        # staleness-at-apply: slot r of ks_row counts arrivals sent
+        # against k = r (mod R), tau = (server_k - r) mod R (pre-cascade)
+        stale_hist = st.stale_hist.index_add(
+            0, self._tau_bins[sk0 & (R - 1)], ks_row)
+
+        # broadcast cascade: fire while round server_k's H slot is full
+        hc = h_counts.clone()
+        bc_k = st.bc_k.clone()
+        bc_at = st.bc_at.clone()
+        fired = torch.zeros((B,), dtype=torch.bool, device=self.device)
+        go = self._true
+        b_ticks = self._plan.broadcast_ticks(None)
+        for r in range(R):
+            idx = (sk0 + r) & (R - 1)
+            go = go & (hc[idx] >= C)
+            hc[idx] = torch.where(go, 0, hc[idx])
+            b = (sk0 + r + 1) & (B - 1)
+            bc_k[b] = torch.where(go, sk0 + r + 1, bc_k[b])
+            bc_at[b] = torch.where(go, t + b_ticks, bc_at[b])
+            fired[b] = fired[b] | go
+        ncasc = fired.sum(dtype=I32)
+
+        # masked ISRRECEIVE: freshest due broadcast per client
+        elig = (bc_at <= t) & (bc_k[:, None] > st.k[None, :])     # [B, C]
+        eta = self._etas_dev[torch.clamp(st.i, max=len(self.etas) - 1)
+                             .to(torch.int64)]
+        cand = torch.where(elig, bc_k[:, None], 0)
+        best_k = cand.max(dim=0).values
+        best = cand.argmax(dim=0)          # first max, as jnp.argmax
+        take = best_k > st.k
+        k = torch.where(take, best_k, st.k)
+        deliver_rows = take.sum(dtype=I32)
+
+        # credit accrual + block size
+        active = st.i < k + d_gate
+        credit = st.credit + torch.where(active, accrual, 0)
+        s_i = sizes.gather(1, torch.clamp(st.i, max=i_cap)
+                           .to(torch.int64)[:, None])[:, 0]
+        n = torch.where(active, torch.minimum(s_i - st.h,
+                                              credit >> FRAC_BITS), 0)
+        n = torch.clamp(n, min=0)
+        credit = credit - (n << FRAC_BITS)
+        any_block = (n > 0).any()
+        h = st.h + n
+
+        # round completions
+        done = active & (h >= s_i)
+        any_done = done.any()
+        i_new = torch.where(done, st.i + 1, st.i)
+        h_new = torch.where(done, 0, h)
+        credit_new = torch.where(
+            done, torch.clamp(credit, max=block << FRAC_BITS), credit)
+
+        ops = st.ops + torch.stack([
+            self._tick_one,                           # ticks
+            any_block.to(I32),                        # block_ticks
+            has_arr.to(I32),                          # bucket_applies
+            (ncasc > 0).to(I32),                      # cascade_ticks
+            (deliver_rows > 0).to(I32),               # deliver_ticks
+            deliver_rows,                             # deliver_rows
+            self._tick_zero,                          # ring_scatters
+            any_done.to(I32),                         # complete_ticks
+            self._tick_zero,                          # far_ticks
+            self._tick_zero,                          # far_groups
+        ])
+
+        if self.fuse_ticks:
+            # int-only preview of tick t + 1's block predicate on the
+            # post-tick state (the reference's predict_block)
+            elig2 = (bc_at <= t + 1) & (bc_k[:, None] > k[None, :])
+            best_k2 = torch.where(elig2, bc_k[:, None], 0).max(dim=0).values
+            k2 = torch.where(best_k2 > k, best_k2, k)
+            active2 = i_new < k2 + d_gate
+            credit2 = credit_new + torch.where(active2, accrual, 0)
+            s_i2 = sizes.gather(1, torch.clamp(i_new, max=i_cap)
+                                .to(torch.int64)[:, None])[:, 0]
+            n2 = torch.where(active2, torch.minimum(s_i2 - h_new,
+                                                    credit2 >> FRAC_BITS), 0)
+            next_no_block = ~(torch.clamp(n2, min=0) > 0).any()
+        else:
+            next_no_block = ~self._true
+
+        packed = torch.stack([ncasc, deliver_rows,
+                              any_block.to(I32), any_done.to(I32),
+                              next_no_block.to(I32)])
+        preds = TickPreds(*packed.tolist())       # the one sync per tick
+        self.host_syncs["tick"] += 1
+
+        # ---- 2) float phase ---------------------------------------------
+        v = bucket_apply(st.v, st.upd_vec[slot:slot + 1], self._ones1,
+                         has_arr)
+        upd_vec = st.upd_vec.clone()
+        upd_vec[slot] = 0.0
+        bc_v = (torch.where(fired[:, None], v[None, :], st.bc_v)
+                if preds.cascades else st.bc_v)
+        w = (tick_deliver(st.w, st.U, bc_v, best, take, eta)
+             if preds.deliver_rows else st.w)
+        U = st.U
+        if preds.any_block:
+            w, U = self.ctask.run_block(w, U, st.i, st.h, n, eta,
+                                        self.b_stat)
+
+        messages, part, bytes_up = st.messages, st.part, st.bytes_up
+        if preds.any_done:
+            done_i = done.to(I32)
+            messages = messages + done_i.sum(dtype=I32)
+            part = part + done_i
+            bytes_up = bytes_up + done_i * self.upd_bytes
+            # update latency addressed by (client, round): st.i is the
+            # pre-increment round, as in the reference
+            arr_slot = (t + self._plan.update_ticks(st.i)) & (L - 1)
+            in_ls = [done & (arr_slot == sl) for sl in range(L)]
+            any_g = torch.stack([m.any() for m in in_ls])           # [G]
+            wgt = torch.stack([eta * m.to(torch.float32)
+                               for m in in_ls])                     # [G, C]
+            oh_l = (arr_slot[:, None] == self._ar_L) & done[:, None]
+            oh_r = (st.i & (R - 1))[:, None] == self._ar_R
+            oh_s = (k & (R - 1))[:, None] == self._ar_R
+            upd_cnt = upd_cnt + (oh_l[:, :, None] & oh_r[:, None, :]).sum(
+                dim=0, dtype=I32)
+            upd_ks = upd_ks + (oh_l[:, :, None] & oh_s[:, None, :]).sum(
+                dim=0, dtype=I32)
+            ops[OP_RING_SCATTERS] += any_g.sum(dtype=I32)
+            if self.dp_on:
+                noise = (prng.normal(prng.fold_in(self._noise_base, t),
+                                     (self.C, self.D), device=self.device)
+                         if self.noise_scale > 0.0 else None)
+                # the weighted sum (agg) is computed and not used: the
+                # ring scatter below re-weights by arrival slot
+                sent, _ = cohort_clip_noise(
+                    U, noise, eta * done.to(torch.float32), done,
+                    clip=self.dp_round_clip, noise_scale=self.noise_scale)
+            else:
+                sent = U
+            w, U, upd_vec = tick_scatter(sent, w, U, upd_vec, wgt, any_g,
+                                         done, eta, dp_on=self.dp_on)
+
+        server_k = st.server_k + ncasc
+        return st._replace(
+            w=w, U=U, v=v, i=i_new, h=h_new, k=k, credit=credit_new,
+            server_k=server_k, tick=st.tick + 1, upd_vec=upd_vec,
+            upd_cnt=upd_cnt, h_counts=hc, bc_v=bc_v, bc_k=bc_k,
+            bc_at=bc_at, messages=messages,
+            broadcasts=st.broadcasts + ncasc, part=part,
+            bytes_up=bytes_up, stale_hist=stale_hist, upd_ks=upd_ks,
+            ops=ops), preds
+
+    # -- segments -----------------------------------------------------------
+    def segment(self, target_k: int, tick_limit: int) -> int:
+        """Advance ``self.state`` until ``server_k >= target_k`` or the
+        tick budget runs out; returns ``server_k``."""
+        st = self.state
+        tick, sk, err = torch.stack([st.tick, st.server_k, st.err]).tolist()
+        self.host_syncs["segment"] += 1
+        while sk < target_k and tick < tick_limit and err == 0:
+            st, p = self._tick(st, tick + 1, sk)
+            tick, sk = tick + 1, sk + p.cascades
+            had_block = p.any_block
+            if (self.fuse_ticks and sk < target_k and tick < tick_limit
+                    and p.next_no_block):
+                # a protocol-only next tick rides in this iteration
+                st, p = self._tick(st, tick + 1, sk)
+                tick, sk = tick + 1, sk + p.cascades
+                had_block = had_block or p.any_block
+            st = st._replace(iters=st.iters + self._iter_inc[int(had_block)])
+        self.state = st
+        return sk
+
+    @property
+    def fused_iters(self):
+        """(loop_iters, block_iters): loop iterations executed and how
+        many contained a block tick."""
+        it = self.state.iters.tolist()
+        return int(it[0]), int(it[1])
+
+    @property
+    def total_messages(self) -> int:
+        return int(self.state.messages)
+
+    @property
+    def total_broadcasts(self) -> int:
+        return int(self.state.broadcasts)
+
+    # -- main loop ----------------------------------------------------------
+    def run(self, *, max_rounds: int, eval_every: int = 1,
+            eval_fn: Optional[Callable] = None,
+            max_ticks: Optional[int] = None) -> Dict[str, Any]:
+        """Run until the server completes ``max_rounds`` broadcasts; the
+        reference's result schema."""
+        if eval_fn is not None:
+            evals = lambda vec: eval_fn(self.ctask.unflatten(vec))  # noqa: E731
+        else:
+            evals = self.ctask.metrics
+        if max_ticks is None:
+            max_ticks = default_max_ticks(
+                self.sizes, self.speeds, self.block, max_rounds,
+                lat_tail_ticks=self._plan.max_lat_ticks,
+                duty=self._plan.duty)
+        next_eval = eval_every
+        timer = self.timer = PhaseTimer()
+        first_segment = True
+        while True:
+            target = min(next_eval, max_rounds)
+            with timer.phase("first_segment" if first_segment
+                             else "steady"):
+                sk = self.segment(target, max_ticks)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            first_segment = False
+            st = self.state
+            if sk < target:
+                raise RuntimeError(
+                    f"cohort engine stalled: {int(st.tick)} ticks, "
+                    f"server_k={sk} < {max_rounds}")
+            if sk >= next_eval:
+                with timer.phase("eval"):
+                    m = evals(st.v)
+                    m.update(round=sk, time=int(st.tick) * self.dt,
+                             messages=int(st.messages))
+                    self.history.append(m)
+                    next_eval = sk + eval_every
+                    self._emit_segment()
+            if sk >= max_rounds:
+                break
+        with timer.phase("eval"):
+            final = evals(st.v)
+        final.update(round=sk, time=int(st.tick) * self.dt,
+                     messages=int(st.messages),
+                     broadcasts=int(st.broadcasts),
+                     overflow_hwm=int(st.ovf_hwm), overflow_slots=0,
+                     far_messages=int(st.far_msgs))
+        report = self.telemetry_report(wall=timer.as_dict())
+        if self._trace:
+            self._trace.emit("report", **report.to_dict())
+            self._trace.close()
+        return {"final": final, "history": self.history,
+                "model": self.ctask.unflatten(st.v), "telemetry": report}
+
+    # -- telemetry ----------------------------------------------------------
+    def _emit_segment(self) -> None:
+        if not self._trace:
+            return
+        st = self.state
+        self._trace.emit(
+            "segment", engine="device", round=int(st.server_k),
+            tick=int(st.tick), time=int(st.tick) * self.dt,
+            messages=int(st.messages), broadcasts=int(st.broadcasts),
+            bytes_up_total=int(st.bytes_up.to(torch.int64).sum()),
+            staleness_hist=st.stale_hist.cpu().numpy(),
+            overflow_hwm=int(st.ovf_hwm), ops=st.ops.cpu().numpy())
+
+    def telemetry_report(self, wall=None):
+        """MetricsReport from the on-device counters (reads the state)."""
+        st = self.state
+        src_task = self.ctask.task
+        return build_report(
+            engine="device", clients=self.C, flat_dim=self.D,
+            rounds=int(st.server_k), messages=int(st.messages),
+            broadcasts=int(st.broadcasts),
+            participation=st.part.cpu().numpy().astype(np.int64),
+            bytes_up=st.bytes_up.cpu().numpy().astype(np.int64),
+            staleness_hist=st.stale_hist.cpu().numpy().astype(np.int64),
+            overflow_hwm=int(st.ovf_hwm), overflow_slots=0,
+            far_messages=int(st.far_msgs), ticks=int(st.tick),
+            ops=st.ops.cpu().numpy().astype(np.int64),
+            dp_sigma=self.dp_sigma, dp_delta=self.dp_delta,
+            n_examples=int(src_task.X.shape[0]),
+            sizes_per_client=self.sizes, wall=wall)

@@ -1,0 +1,163 @@
+"""Cohort-engine state: protocol scalars and the device-resident state.
+
+``DeviceCohortState`` holds the whole protocol on the device — the
+population blocks ``w``/``U`` ``[C, D]``, the per-client counters, the
+message buffers as fixed-capacity ring tensors and the telemetry
+counters — as one NamedTuple of tensors with the reference's field names
+and dtypes (``repro.cohort.state``), so a numpy copy of the reference's
+state converts field by field (``repro_torch.convert.state_from_jax``).
+
+Iteration credit is int32 fixed point (``FRAC_BITS`` fractional bits),
+as in the reference: float credit would accumulate differently across
+engines, and a single divergent ``floor(credit)`` changes the schedule.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import numpy as np
+
+FRAC_BITS = 16   # fixed-point fractional bits of the iteration credit
+
+
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= n (ring capacities, block sizes)."""
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def speed_accrual(speeds, block: int) -> np.ndarray:
+    """Per-tick integer credit earned by each client.
+
+    dt = block / max(speed), so client c earns ``speed_c / max(speed) *
+    block`` iterations per tick; quantized to FRAC_BITS so both engines
+    accrue the exact same integers.
+    """
+    s = np.asarray(speeds, np.float64)
+    ispeed = np.maximum(1, np.round(s / s.max() * (1 << FRAC_BITS)))
+    return ispeed.astype(np.int64) * int(block)
+
+
+def pad_sizes(sizes_per_client, n_clients: int) -> np.ndarray:
+    """Per-client round sizes as a dense [C, L] array, s(i) = s[min(i, L-1)].
+
+    Shared by both cohort engines so their schedules stay identical.
+    """
+    if isinstance(sizes_per_client[0], (list, tuple)):
+        per_client = [list(s) for s in sizes_per_client]
+    else:
+        per_client = [list(sizes_per_client)] * n_clients
+    L = max(len(s) for s in per_client)
+    sizes = np.empty((n_clients, L), np.int64)
+    for c, s in enumerate(per_client):
+        sizes[c, :len(s)] = s
+        sizes[c, len(s):] = s[-1]
+    return sizes
+
+
+def default_max_ticks(sizes: np.ndarray, speeds: np.ndarray, block: int,
+                      max_rounds: int, *, lat_tail_ticks: int = 1,
+                      duty: float = 1.0) -> int:
+    """Stall-detection tick budget, shared by both cohort engines.
+
+    dt is sized for the FASTEST client (dt = block / max speed), so the
+    slowest one earns only block * min/max credit per tick and needs
+    speed_ratio times more ticks than s/block suggests; the budget must
+    also cover the LARGEST round of an increasing schedule, not round 0.
+    Scenario terms: every round waits one update + one broadcast trip,
+    so the budget carries 2x the latency table's TAIL tick count (not
+    the mean — a heavy-tailed table otherwise trips the guard), and an
+    availability duty cycle < 1 stretches every compute tick by 1/duty.
+    """
+    speed_ratio = float(speeds.max() / speeds.min())
+    compute = int(sizes.max()) / block * speed_ratio / max(duty, 1e-3)
+    per_round = int(math.ceil(compute)) + 8 + 2 * int(lat_tail_ticks)
+    return max(1000, max_rounds * per_round * 16)
+
+
+class DeviceCohortState(NamedTuple):
+    """Whole protocol state on device — counters, models, message rings.
+
+    Message buffers are fixed-capacity power-of-two rings (capacities
+    chosen in ``repro_torch.cohort.device``):
+
+      * update ring, L slots (L > max latency ticks): ``upd_vec[t % L]``
+        accumulates the pre-weighted [D] contribution arriving at tick t;
+        ``upd_cnt[t % L, r % R]`` counts the arriving (round r, client)
+        pairs that feed Algorithm 3's H bookkeeping.
+      * H-count ring, R slots: per-round receive counts.  The wait gate
+        keeps in-flight update rounds inside [server_k, server_k + d], so
+        R >= next_pow2(d + 2) slots never collide.
+      * broadcast ring, B slots of ((v snapshot, k), per-client arrival
+        tick): an undelivered broadcast j gates every client at rounds
+        <= j + d - 1, hence at most d + 1 distinct k outstanding and
+        B >= next_pow2(d + 2) suffices.
+      * overflow bucket, Q slots of (arrival tick, pre-weighted [D]
+        vector, [R] round counts): update arrivals whose latency offset
+        reaches past the L-slot ring (heavy-tailed tables under the
+        ``Scenario.ring_cap`` boundary).  Entries merge by exact arrival
+        tick; ``ovf_at == 0`` marks a free slot and ``err`` latches
+        capacity exhaustion.  The port does not route to it yet (ROADMAP
+        Queue 1 item 7): its fields are [1, ...] placeholders.
+    """
+    w: Any                 # [C, D] f32 client models
+    U: Any                 # [C, D] f32 round-update accumulators
+    v: Any                 # [D]    f32 server model
+    i: Any                 # [C]    i32 current round
+    h: Any                 # [C]    i32 iterations done in round i
+    k: Any                 # [C]    i32 freshest broadcast counter seen
+    credit: Any            # [C]    i32 fixed-point iteration credit
+    server_k: Any          # []     i32 completed-round counter
+    tick: Any              # []     i32
+    upd_vec: Any           # [L, D] f32 pre-weighted arrival buckets
+    upd_cnt: Any           # [L, R] i32 arriving (round, client) counts
+    h_counts: Any          # [R]    i32 Algorithm 3's H, per round mod R
+    bc_v: Any              # [B, D] f32 broadcast model snapshots
+    bc_k: Any              # [B]    i32 broadcast round counters
+    bc_at: Any             # [B, C] i32 per-client arrival ticks
+    ovf_vec: Any           # [Q, D] f32 far-arrival overflow vectors
+    ovf_at: Any            # [Q]    i32 overflow arrival ticks (0 = free)
+    ovf_cnt: Any           # [Q, R] i32 overflow (round, client) counts
+    err: Any               # []     i32 overflow-capacity error latch
+    messages: Any          # []     i32 client->server updates sent
+    broadcasts: Any        # []     i32 server broadcasts fired
+    # telemetry (repro_torch.telemetry): census + staleness counters
+    # kept on the device, read by the host only at eval segments.
+    # ``upd_ks[t % L, k % R]`` / ``ovf_ks[q, k % R]`` count arrivals by
+    # the SENDER's broadcast counter k at send time; staleness-at-apply
+    # is decoded at pop as (server_k - k) mod R, exact because the wait
+    # gate bounds it by d - 1 < R.
+    part: Any              # [C]    i32 updates sent per client
+    bytes_up: Any          # [C]    i32 uplink bytes per client
+    stale_hist: Any        # [S]    i32 staleness-at-apply histogram
+    upd_ks: Any            # [L, R] i32 arrival counts by sender k mod R
+    ovf_ks: Any            # [Q, R] i32 overflow counts by sender k mod R
+    ovf_hwm: Any           # []     i32 overflow occupancy high-water mark
+    far_msgs: Any          # []     i32 updates routed to the far tier
+    # aggregation-strategy buffers: [1, ...] placeholders under the
+    # paper strategy, the only one ported (FedAsync/FedBuff: ROADMAP
+    # Queue 1 item 8).
+    # ``upd_kvec``/``ovf_kvec`` are the sender-k STRATIFIED counterparts
+    # of ``upd_vec``/``ovf_vec`` — FedAsync must decay each arriving
+    # vector by its own staleness at apply time, so pre-summing across
+    # sender-k (the paper path) would lose the needed resolution.
+    # ``buf_vec``/``buf_cnt`` are FedBuff's accumulator and its arrival
+    # count since the last flush.
+    upd_kvec: Any          # [L, R, D] f32 arrival buckets by sender k
+    ovf_kvec: Any          # [Q, R, D] f32 overflow buckets by sender k
+    buf_vec: Any           # [D]       f32 FedBuff flush accumulator
+    buf_cnt: Any           # []        i32 updates buffered since flush
+    # op census (repro_torch.telemetry.costs): which tick-loop
+    # operations ran — branch hits, delivery rows, ring scatters — one
+    # cumulative i32 vector indexed by costs.OP_NAMES, advanced by the
+    # tick's integer phase only, so the float math is untouched.
+    ops: Any               # [N_OPS]   i32 op-census counters
+    # fused-loop iteration census (``fuse_ticks``):
+    # [loop_iters, block_iters] — loop iterations executed and how
+    # many of them contained at least one block tick.  Protocol-neutral:
+    # the ops census above still counts TICKS, this counts ITERATIONS
+    # after tick coalescing, so block_iters <= loop_iters <= ticks.
+    iters: Any             # [2]       i32 [loop_iters, block_iters]

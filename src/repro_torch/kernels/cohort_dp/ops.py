@@ -1,0 +1,30 @@
+"""Dispatch for the cohort clip+noise kernel: by the tensors' device.
+
+A CUDA tensor goes to the CUDA kernel or the call raises; a CPU tensor
+goes to the plain version.  The caller draws the noise (operand path):
+the device engine's threefry normals, bit-compatible with the
+reference's key chain.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.cohort_dp.kernel import cohort_clip_noise_kernel
+from repro_torch.kernels.cohort_dp.ref import cohort_clip_noise_ref
+from repro_torch.kernels.tick_fused.ops import on_cuda
+
+
+def cohort_clip_noise(u, noise, weights, mask, *, clip: float = 0.0,
+                      noise_scale: float = 0.0):
+    """u: (C, D) round updates -> (noised rows (C, D), weighted agg (D,)).
+
+    clip <= 0 disables the per-row norm clip; noise_scale is the std-dev
+    multiplier on the standard-normal ``noise`` (protocol: dp_clip *
+    dp_sigma), which may be None when noise_scale <= 0."""
+    if not on_cuda(u):
+        return cohort_clip_noise_ref(u, noise, weights, mask, clip=clip,
+                                     noise_scale=noise_scale)
+    return cohort_clip_noise_kernel(
+        u.contiguous(), None if noise_scale <= 0.0 else noise.contiguous(),
+        weights.to(torch.float32), mask.to(torch.float32), clip=clip,
+        noise_scale=noise_scale)

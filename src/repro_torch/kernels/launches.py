@@ -1,0 +1,15 @@
+"""Launch counts of the port's CUDA kernels.
+
+Each kernel wrapper adds one to its entry where it launches its kernel
+and nowhere else, so a run can show that its main path went through the
+kernels: zero the counts, drive the path, read them.
+"""
+from typing import Dict
+
+LAUNCHES: Dict[str, int] = {"bucket_apply": 0, "tick_deliver": 0,
+                            "tick_scatter": 0, "cohort_clip_noise": 0}
+
+
+def reset() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -1,0 +1,59 @@
+"""Dispatch for the fused tick kernels: by the tensors' device.
+
+A CUDA tensor goes to the CUDA kernel (``kernel.py``) or the call
+raises; a CPU tensor goes to the plain PyTorch version (``ref.py``).
+There is no fallback from one to the other.  The wrappers take the
+engine's natural dtypes (bool masks and flags, int64 ring indices) and
+hand the kernels exactly what they check for.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.tick_fused.kernel import (bucket_apply_kernel,
+                                                   tick_deliver_kernel,
+                                                   tick_scatter_kernel)
+from repro_torch.kernels.tick_fused.ref import (bucket_apply_ref,
+                                                tick_deliver_ref,
+                                                tick_scatter_ref)
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def bucket_apply(v, rows, dec, flag):
+    """v [D], rows [A, D], dec [A], flag [] bool tensor -> [D]."""
+    if not on_cuda(v):
+        return bucket_apply_ref(v, rows, dec, flag)
+    # the kernel reads the flag on the device: no host round trip
+    return bucket_apply_kernel(v.contiguous(), rows.contiguous(),
+                               dec.contiguous(),
+                               flag.reshape(1).to(torch.int32))
+
+
+def tick_deliver(w, U, bc_v, best, take, eta):
+    """w, U [C, D]; bc_v [B, D]; best [C] int; take [C] bool; eta [C]."""
+    if not on_cuda(w):
+        return tick_deliver_ref(w, U, bc_v, best, take, eta)
+    return tick_deliver_kernel(w.contiguous(), U.contiguous(),
+                               bc_v.contiguous(), best.to(torch.int64),
+                               take.to(torch.bool), eta.contiguous())
+
+
+def tick_scatter(sent, w, U, upd, wgt, any_g, done, eta, *, dp_on: bool):
+    """sent, w, U [C, D]; upd [G, D]; wgt [G, C]; any_g [G] bool;
+    done [C] bool; eta [C] -> (w', U', upd')."""
+    if not on_cuda(sent):
+        return tick_scatter_ref(sent, w, U, upd, wgt, any_g, done, eta,
+                                dp_on=dp_on)
+    return tick_scatter_kernel(sent.contiguous(), w.contiguous(),
+                               U.contiguous(), upd.contiguous(),
+                               wgt.contiguous(), any_g.to(torch.bool),
+                               done.to(torch.bool), eta.contiguous(),
+                               dp_on=dp_on)

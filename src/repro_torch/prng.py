@@ -1,0 +1,147 @@
+"""A mirror of jax's threefry2x32 PRNG on torch tensors.
+
+Every contract of the reference rests on message-addressed threefry draws
+(``fold_in`` chains keyed by the salts in ``repro_torch.analysis.salts``),
+so the port reproduces jax's bits exactly, under jax's default
+``jax_threefry_partitionable=True``:
+
+* a key is an int64 tensor ``[..., 2]`` holding two uint32 words;
+  ``PRNGKey(seed) == [seed >> 32, seed & 0xFFFFFFFF]``;
+* ``fold_in(key, d) == threefry2x32(key, (0, d))``;
+* ``random_bits(key, shape)`` is ``x0 ^ x1`` of
+  ``threefry2x32(key, (hi, lo))`` over the 64-bit flat index;
+* ``uniform`` fills the mantissa of a float in [1, 2) and shifts;
+* ``normal`` is ``sqrt(2) * erf_inv(uniform(nextafter(-1, 0), 1))`` with
+  XLA's f32 ``ErfInv`` polynomial (Giles), copied below.
+
+uint32 words live in int64 tensors masked to 32 bits, so every op runs
+on any device and dtype promotion never wraps.  The hash also accepts
+Python ints, so a scalar key chain (one key per tick) costs no device
+launches: keep scalar keys on the CPU and hand them to the draws.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROT0 = (13, 15, 26, 6)
+_ROT1 = (17, 29, 16, 24)
+_PARITY = 0x1BD11BDA
+
+Word = Union[int, torch.Tensor]
+
+
+def _rotl(x: Word, r: int) -> Word:
+    return ((x << r) | (x >> (32 - r))) & MASK32
+
+
+def _rounds(x0: Word, x1: Word, rots) -> Tuple[Word, Word]:
+    for r in rots:
+        x0 = (x0 + x1) & MASK32
+        x1 = _rotl(x1, r) ^ x0
+    return x0, x1
+
+
+def threefry2x32(k0: Word, k1: Word, x0: Word, x1: Word) -> Tuple[Word, Word]:
+    """The Threefry-2x32 hash (20 rounds), jax's unrolled lowering.
+
+    Arguments are uint32 values as Python ints or int64 tensors that
+    broadcast together; returns the two output words."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & MASK32
+    x1 = (x1 + ks[1]) & MASK32
+    for n in range(5):
+        x0, x1 = _rounds(x0, x1, _ROT0 if n % 2 == 0 else _ROT1)
+        x0 = (x0 + ks[(n + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(n + 2) % 3] + (n + 1)) & MASK32
+    return x0, x1
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` for a non-negative integer seed."""
+    seed = int(seed)
+    if seed < 0:
+        raise ValueError("the mirror covers non-negative seeds only")
+    return torch.tensor([(seed >> 32) & MASK32, seed & MASK32],
+                        dtype=torch.int64, device=device)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in`` over a batch: ``key [..., 2]`` and integer
+    ``data`` (int or tensor) broadcast together -> keys ``[..., 2]``."""
+    if not torch.is_tensor(data):
+        data = torch.tensor(int(data), dtype=torch.int64, device=key.device)
+    data = data.to(torch.int64) & MASK32
+    y0, y1 = threefry2x32(key[..., 0], key[..., 1], 0, data)
+    return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
+
+
+def _scalar_key(key: torch.Tensor) -> Tuple[int, int]:
+    if tuple(key.shape) != (2,):
+        raise ValueError(f"need one key of shape (2,), got {tuple(key.shape)}")
+    k0, k1 = key.tolist()
+    return int(k0), int(k1)
+
+
+def random_bits(key: torch.Tensor, shape: Sequence[int],
+                device=None) -> torch.Tensor:
+    """32 random bits per element (int64 tensor holding uint32 values),
+    ``jax.random.bits(key, shape)`` under the partitionable layout.
+
+    ``key`` is one key; keep it on the CPU — its two words become kernel
+    scalars, so the draw itself makes no host round trip."""
+    k0, k1 = _scalar_key(key)
+    n = int(np.prod(shape)) if len(shape) else 1
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(k0, k1, idx >> 32, idx & MASK32)
+    return (b0 ^ b1).reshape(tuple(shape))
+
+
+def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 bits -> f32 in [0, 1): mantissa of a float in [1, 2), - 1."""
+    fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return fb.view(torch.float32) - 1.0
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    f = _bits_to_unit(random_bits(key, shape, device=device))
+    return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+# XLA's f32 ErfInv (chlo_legalize_to_hlo: Giles' single-precision
+# approximation), as jax's pallas lowering helper copies it.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """f32 inverse error function with XLA's polynomial."""
+    w = -torch.log1p(x * -x)
+    lt5 = w < 5.0
+    w = torch.where(lt5, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt5, _ERFINV_LT5[0], _ERFINV_GE5[0]).to(torch.float32)
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt5, a, b).to(torch.float32) + p * w
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2_F32 = float(np.float32(np.sqrt(2)))
+
+
+def normal(key: torch.Tensor, shape: Sequence[int],
+           device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0, device=device)
+    return _SQRT2_F32 * erf_inv(u)
