@@ -2,38 +2,44 @@
 with the whole state on the card.
 
 ``DeviceCohortState`` — the ``[C, D]`` population blocks, per-client
-counters, message rings and telemetry counters — lives on the engine's
-device for the whole run.  One protocol tick is two phases:
+counters, message rings, the overflow bucket, the strategy buffers and
+the telemetry counters — lives on the engine's device for the whole run.
+One protocol tick is two phases:
 
 1. **Integer phase.**  The protocol's integer state (rounds ``i``,
    offsets ``h``, freshest-seen ``k``, fixed-point ``credit``, the H-count
-   and broadcast rings, the census counters) never depends on a float
-   value, so the whole tick's integer update runs first, as tensor ops
-   on the device: bucket-pop counts, the broadcast cascade (unrolled
-   ``R`` masked steps — it can fire at most ``R`` times, each zeroing a
-   distinct H slot), ISRRECEIVE's freshest-broadcast pick, credit
-   accrual, round completion, and, with ``fuse_ticks``, the next tick's
-   block preview.  The branch predicates are packed into one small
-   tensor and read by the host: **one host sync per tick**.
+   and broadcast rings, the overflow bucket's ticks and counts, the
+   census counters) never depends on a float value, so the whole tick's
+   integer update runs first, as tensor ops on the device: bucket and
+   overflow pop counts, the broadcast cascade (unrolled ``R`` masked
+   steps — it can fire at most ``R`` times, each zeroing a distinct H
+   slot — with each broadcast's own latency draw), ISRRECEIVE's
+   freshest-broadcast pick, availability, credit accrual, round
+   completion, the far-tier slot plan, and, with ``fuse_ticks``, the
+   next tick's block preview.  The branch predicates and the overflow
+   error latch are packed into one small tensor and read by the host:
+   **one host sync per tick**.
 2. **Float phase.**  The host enqueues only the ``[C, D]`` work the
    predicates call for — the fused kernels of ``repro_torch.kernels``
-   (``bucket_apply`` every tick, reading its flag on the device;
-   ``tick_deliver`` on delivery ticks; the SGD block on block ticks;
-   ``cohort_clip_noise`` + ``tick_scatter`` on completion ticks) — and
-   moves on to the next tick's integer phase while the card works.
+   (``bucket_apply`` every tick, reading its flag on the device: the
+   arrival flag, or FedBuff's flush flag; ``tick_deliver`` on delivery
+   ticks; the SGD block on block ticks; ``cohort_clip_noise`` or
+   ``cohort_clip_noise_prng`` + ``tick_scatter`` on completion ticks;
+   the far-tier group sums on ticks that route updates past the ring)
+   — and moves on to the next tick's integer phase while the card works.
 
 Host-known scalars (the tick number, the pre-tick ``server_k``) index
-the rings directly, and every constant the tick needs is a device
-tensor built once, so a tick makes no host-to-device copy.
+the rings and key the draws directly, and the constants of the tick are
+device tensors built once, so a tick makes no host-to-device copy.
 
 The op census and the ``fuse_ticks`` iteration census are exact against
-the reference (``repro/cohort/device.py``): a loop iteration is one
-tick plus, when the int-only preview says the next tick runs no block,
-that next tick.  Ported: the paper strategy, the constant-tick
-``uniform`` plan (no overflow bucket) and operand DP noise.  FedAsync /
-FedBuff (ROADMAP Queue 1 item 8), sampled latency, churn and the
-overflow bucket (item 7) and ``dp_rng="in_kernel"`` (Queue 2 item 5)
-raise ``NotImplementedError``.
+the reference (``repro/cohort/device.py``): a loop iteration is one tick
+plus, when the int-only preview says the next tick runs no block, that
+next tick.  Strategies: the paper's, FedAsync (sender-k stratified
+``[L, R, D]`` buckets decayed at apply) and FedBuff (a banked buffer
+flushed every ``buffer_size`` arrivals).  DP noise: ``operand`` (the
+reference's threefry normals, drawn by torch ops) or ``in_kernel``
+(counter-based normals generated inside the CUDA kernel).
 """
 from __future__ import annotations
 
@@ -47,18 +53,27 @@ from repro_torch.analysis.salts import NOISE_SALT
 from repro_torch.cohort.state import (FRAC_BITS, DeviceCohortState,
                                       default_max_ticks, next_pow2,
                                       pad_sizes, speed_accrual)
-from repro_torch.core.strategies import get_strategy
+from repro_torch.core.strategies import get_strategy, ring_decay
 from repro_torch.core.tasks import validate_dp_knobs
-from repro_torch.kernels.cohort_dp import cohort_clip_noise
+from repro_torch.kernels.cohort_dp import (cohort_clip_noise,
+                                           cohort_clip_noise_prng)
 from repro_torch.kernels.tick_fused import (bucket_apply, tick_deliver,
                                             tick_scatter)
 from repro_torch.scenarios import (ScenarioPlan, get_scenario,
                                    legacy_latency_scenario)
 from repro_torch.telemetry import (STALE_BINS, PhaseTimer, build_report,
                                    open_trace, update_msg_bytes)
-from repro_torch.telemetry.costs import N_OPS, OP_RING_SCATTERS
+from repro_torch.telemetry.costs import (N_OPS, OP_FAR_GROUPS, OP_FAR_TICKS,
+                                         OP_RING_SCATTERS)
 
 I32 = torch.int32
+F32 = torch.float32
+
+# Bound on the distinct far arrival ticks one completion tick inserts
+# into the overflow bucket (the reference's unroll bound): a tick that
+# produces more trips the err latch and run() raises with the ring_cap
+# advice.
+FAR_UNROLL_CAP = 16
 
 
 def resolve_device(device=None) -> torch.device:
@@ -88,6 +103,16 @@ class TickPreds(NamedTuple):
     any_block: int
     any_done: int
     next_no_block: int      # fuse preview: the next tick runs no block
+    any_far: int            # a finished update routes past the ring
+    err: int                # the overflow bucket's error latch
+
+
+class _FarPlan(NamedTuple):
+    """The far tier's integer plan of one completion tick, by far tick
+    value (the plan's ``far_tick_values``, ascending)."""
+    grp: torch.Tensor       # [V, C] bool: finished clients per far value
+    slot_of_q: torch.Tensor  # [Q] int64: the group each written slot takes
+    written_q: torch.Tensor  # [Q] bool: slots written this tick
 
 
 class DeviceCohortEngine:
@@ -132,11 +157,7 @@ class DeviceCohortEngine:
         self.dp_sigma = float(dp_sigma)
         self.dp_clip = float(dp_clip)
         self.dp_round_clip = float(dp_round_clip)
-        if dp_rng == "in_kernel":
-            raise NotImplementedError(
-                "dp_rng='in_kernel' is not ported yet (ROADMAP Queue 2 "
-                "item 5: the in-kernel-PRNG clip+noise kernel)")
-        if dp_rng != "operand":
+        if dp_rng not in ("operand", "in_kernel"):
             raise ValueError(f"dp_rng={dp_rng!r} not in "
                              f"('operand', 'in_kernel')")
         self.dp_rng = dp_rng
@@ -146,9 +167,16 @@ class DeviceCohortEngine:
         self.dp_delta = float(dp_delta)
         self._trace = open_trace(trace)
 
+        # ring capacities: L covers latency offsets up to the plan's ring
+        # boundary (Scenario.ring_cap); offsets past it go to the Q-slot
+        # overflow bucket.  F bounds the distinct far arrival ticks one
+        # completion tick inserts (capped at FAR_UNROLL_CAP).
         self.L = self._plan.ring_ticks
-        self.F = 0
-        self.Q = 1
+        far_vals = self._plan.far_tick_values
+        self.F = min(len(far_vals), FAR_UNROLL_CAP)
+        self.Q = (next_pow2(min(C * (self.d_gate + 1),
+                                self._plan.max_lat_ticks + 1, 128))
+                  if self.F else 1)
         self.R = next_pow2(self.d_gate + 2)
         self.B = next_pow2(self.d_gate + 2)
         self.strategy = get_strategy(strategy)
@@ -157,8 +185,7 @@ class DeviceCohortEngine:
 
         # constants of the tick, built once on the device
         R, L = self.R, self.L
-        self._etas_dev = torch.tensor(self.etas, dtype=torch.float32,
-                                      device=dev)
+        self._etas_dev = torch.tensor(self.etas, dtype=F32, device=dev)
         self._sizes_dev = torch.tensor(self.sizes, dtype=I32, device=dev)
         self._accrual_dev = torch.tensor(
             speed_accrual(self.speeds, self.block), dtype=I32, device=dev)
@@ -167,14 +194,24 @@ class DeviceCohortEngine:
                                       dtype=torch.int64, device=dev)
         self._ar_L = torch.arange(L, dtype=I32, device=dev)
         self._ar_R = torch.arange(R, dtype=I32, device=dev)
-        self._ones1 = torch.ones((1,), dtype=torch.float32, device=dev)
+        self._ar_Q = torch.arange(self.Q, dtype=torch.int64, device=dev)
+        self._far_vals = torch.tensor(far_vals, dtype=I32, device=dev)
+        self._ones1 = torch.ones((1,), dtype=F32, device=dev)
         self._true = torch.ones((), dtype=torch.bool, device=dev)
+        self._false = torch.zeros((), dtype=torch.bool, device=dev)
         self._iter_inc = torch.tensor([[1, 0], [1, 1]], dtype=I32,
                                       device=dev)
         self._tick_one = torch.ones((), dtype=I32, device=dev)
         self._tick_zero = torch.zeros((), dtype=I32, device=dev)
+        # FedAsync: the [R] decay row depends on server_k mod R only
+        self._dec_rows = torch.stack([
+            ring_decay(self.strategy, s, R, device=dev) for s in range(R)])
         self._noise_base = prng.PRNGKey(self.seed ^ NOISE_SALT)   # CPU
         self.upd_bytes = update_msg_bytes(self.D)
+        # update-latency offsets of the current rounds, kept while st.i is
+        # the same tensor (a tick without completions keeps it)
+        self._off_i: Optional[torch.Tensor] = None
+        self._off: Optional[torch.Tensor] = None
         #: host reads made by the tick loop: one per tick, one per segment
         self.host_syncs = {"tick": 0, "segment": 0}
         self.state = self._init_state()
@@ -183,63 +220,97 @@ class DeviceCohortEngine:
     def _init_state(self) -> DeviceCohortState:
         C, D, L, R, B, Q = self.C, self.D, self.L, self.R, self.B, self.Q
         dev = self.device
-        v0 = self.ctask.init_flat().to(torch.float32)
+        v0 = self.ctask.init_flat().to(F32)
+        strat = self.strategy
 
         def z(*shape, dtype=I32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        f32 = torch.float32
         return DeviceCohortState(
-            w=v0[None, :].repeat(C, 1), U=z(C, D, dtype=f32), v=v0.clone(),
+            w=v0[None, :].repeat(C, 1), U=z(C, D, dtype=F32), v=v0.clone(),
             i=z(C), h=z(C), k=z(C), credit=z(C), server_k=z(), tick=z(),
-            upd_vec=z(L, D, dtype=f32), upd_cnt=z(L, R), h_counts=z(R),
-            bc_v=z(B, D, dtype=f32), bc_k=z(B), bc_at=z(B, C),
-            ovf_vec=z(Q, D, dtype=f32), ovf_at=z(Q), ovf_cnt=z(Q, R),
+            upd_vec=z(L, D, dtype=F32), upd_cnt=z(L, R), h_counts=z(R),
+            bc_v=z(B, D, dtype=F32), bc_k=z(B), bc_at=z(B, C),
+            ovf_vec=z(Q, D, dtype=F32), ovf_at=z(Q), ovf_cnt=z(Q, R),
             err=z(), messages=z(), broadcasts=z(), part=z(C),
             bytes_up=z(C), stale_hist=z(STALE_BINS), upd_ks=z(L, R),
             ovf_ks=z(Q, R), ovf_hwm=z(), far_msgs=z(),
-            upd_kvec=z(1, 1, 1, dtype=f32), ovf_kvec=z(1, 1, 1, dtype=f32),
-            buf_vec=z(1, dtype=f32), buf_cnt=z(), ops=z(N_OPS), iters=z(2))
+            # strategy buffers: full size only when the strategy uses them
+            upd_kvec=z(*((L, R, D) if strat.stratified else (1, 1, 1)),
+                       dtype=F32),
+            ovf_kvec=z(*((Q, R, D) if strat.stratified else (1, 1, 1)),
+                       dtype=F32),
+            buf_vec=z(D if strat.buffered else 1, dtype=F32), buf_cnt=z(),
+            ops=z(N_OPS), iters=z(2))
+
+    def _update_offsets(self, i: torch.Tensor) -> torch.Tensor:
+        """``plan.update_ticks(i)``, drawn once per distinct ``i`` tensor."""
+        if self._off_i is not i:
+            self._off = self._plan.update_ticks(i)
+            self._off_i = i
+        return self._off
 
     # -- one protocol tick --------------------------------------------------
     def _tick(self, st: DeviceCohortState, t: int, sk0: int):
         """Advance ``st`` by tick ``t`` (= st.tick + 1); ``sk0`` is the
         pre-tick ``server_k``.  Returns the new state and the predicates."""
-        C, L, R, B = self.C, self.L, self.R, self.B
+        C, L, R, B, Q = self.C, self.L, self.R, self.B, self.Q
         d_gate, block = self.d_gate, self.block
         sizes, accrual = self._sizes_dev, self._accrual_dev
         i_cap = sizes.shape[1] - 1
+        strat, plan = self.strategy, self._plan
+        far_tier = self.F > 0
 
         # ---- 1) integer phase ------------------------------------------
-        # server: pop this tick's arrival slot, merge H counts
+        # server: pop this tick's arrival slot and any overflow entry due
+        # now (entries merge by arrival tick, so at most one is due)
         slot = t & (L - 1)
-        cnt_row = st.upd_cnt[slot]
-        ks_row = st.upd_ks[slot]
-        has_arr = cnt_row.sum() > 0
+        cnt_total = st.upd_cnt[slot]
+        ks_total = st.upd_ks[slot]
+        ovf_at, ovf_cnt, ovf_ks = st.ovf_at, st.ovf_cnt, st.ovf_ks
+        if far_tier:
+            ovf_hit = st.ovf_at == t                                 # [Q]
+            hit_i = ovf_hit.to(I32)[:, None]
+            cnt_total = cnt_total + (st.ovf_cnt * hit_i).sum(0, dtype=I32)
+            ks_total = ks_total + (st.ovf_ks * hit_i).sum(0, dtype=I32)
+            ovf_at = torch.where(ovf_hit, 0, st.ovf_at)
+            ovf_cnt = torch.where(ovf_hit[:, None], 0, st.ovf_cnt)
+            ovf_ks = torch.where(ovf_hit[:, None], 0, st.ovf_ks)
+        n_arr = cnt_total.sum(dtype=I32)
+        has_arr = n_arr > 0
         upd_cnt = st.upd_cnt.clone()
         upd_cnt[slot] = 0
         upd_ks = st.upd_ks.clone()
         upd_ks[slot] = 0
-        h_counts = st.h_counts + cnt_row
-        # staleness-at-apply: slot r of ks_row counts arrivals sent
+        h_counts = st.h_counts + cnt_total
+        # staleness-at-apply: slot r of ks_total counts arrivals sent
         # against k = r (mod R), tau = (server_k - r) mod R (pre-cascade)
         stale_hist = st.stale_hist.index_add(
-            0, self._tau_bins[sk0 & (R - 1)], ks_row)
+            0, self._tau_bins[sk0 & (R - 1)], ks_total)
+        buf_cnt = st.buf_cnt
+        flush = None
+        if strat.buffered:
+            # FedBuff: bank the due bucket, flush on every BUF-th message;
+            # the kernel reads the flush flag on the device
+            buf_cnt = buf_cnt + n_arr
+            flush = buf_cnt >= strat.buffer_size
+            buf_cnt = torch.where(flush, 0, buf_cnt)
 
-        # broadcast cascade: fire while round server_k's H slot is full
+        # broadcast cascade: fire while round server_k's H slot is full;
+        # broadcast k = sk0 + r + 1 arrives after its own latency draw
         hc = h_counts.clone()
         bc_k = st.bc_k.clone()
         bc_at = st.bc_at.clone()
         fired = torch.zeros((B,), dtype=torch.bool, device=self.device)
         go = self._true
-        b_ticks = self._plan.broadcast_ticks(None)
         for r in range(R):
             idx = (sk0 + r) & (R - 1)
             go = go & (hc[idx] >= C)
             hc[idx] = torch.where(go, 0, hc[idx])
             b = (sk0 + r + 1) & (B - 1)
             bc_k[b] = torch.where(go, sk0 + r + 1, bc_k[b])
-            bc_at[b] = torch.where(go, t + b_ticks, bc_at[b])
+            bc_at[b] = torch.where(
+                go, t + plan.broadcast_ticks(sk0 + r + 1), bc_at[b])
             fired[b] = fired[b] | go
         ncasc = fired.sum(dtype=I32)
 
@@ -254,8 +325,11 @@ class DeviceCohortEngine:
         k = torch.where(take, best_k, st.k)
         deliver_rows = take.sum(dtype=I32)
 
-        # credit accrual + block size
+        # availability gates compute, credit and completion — an off
+        # client accrues nothing and sends nothing this tick
         active = st.i < k + d_gate
+        if plan.avail_mask is not None:
+            active = active & plan.avail_mask(t)
         credit = st.credit + torch.where(active, accrual, 0)
         s_i = sizes.gather(1, torch.clamp(st.i, max=i_cap)
                            .to(torch.int64)[:, None])[:, 0]
@@ -287,6 +361,19 @@ class DeviceCohortEngine:
             self._tick_zero,                          # far_groups
         ])
 
+        # far tier: updates whose latency reaches past the ring go to the
+        # overflow bucket, one slot per distinct arrival tick
+        err, ovf_hwm, far_msgs = st.err, st.ovf_hwm, st.far_msgs
+        any_far, far = self._false, None
+        if far_tier:
+            arr_off = self._update_offsets(st.i)
+            far_mask = done & (arr_off >= L)
+            any_far = far_mask.any()
+            (ovf_at, ovf_cnt, ovf_ks, err, ovf_hwm, far_msgs, ops,
+             far) = self._far_plan(t, st.i, k, far_mask, any_far, ovf_at,
+                                   ovf_cnt, ovf_ks, err, ovf_hwm,
+                                   far_msgs, ops)
+
         if self.fuse_ticks:
             # int-only preview of tick t + 1's block predicate on the
             # post-tick state (the reference's predict_block)
@@ -294,6 +381,8 @@ class DeviceCohortEngine:
             best_k2 = torch.where(elig2, bc_k[:, None], 0).max(dim=0).values
             k2 = torch.where(best_k2 > k, best_k2, k)
             active2 = i_new < k2 + d_gate
+            if plan.avail_mask is not None:
+                active2 = active2 & plan.avail_mask(t + 1)
             credit2 = credit_new + torch.where(active2, accrual, 0)
             s_i2 = sizes.gather(1, torch.clamp(i_new, max=i_cap)
                                 .to(torch.int64)[:, None])[:, 0]
@@ -301,19 +390,58 @@ class DeviceCohortEngine:
                                                     credit2 >> FRAC_BITS), 0)
             next_no_block = ~(torch.clamp(n2, min=0) > 0).any()
         else:
-            next_no_block = ~self._true
+            next_no_block = self._false
 
-        packed = torch.stack([ncasc, deliver_rows,
-                              any_block.to(I32), any_done.to(I32),
-                              next_no_block.to(I32)])
+        packed = torch.stack([ncasc, deliver_rows, any_block.to(I32),
+                              any_done.to(I32), next_no_block.to(I32),
+                              any_far.to(I32), err])
         preds = TickPreds(*packed.tolist())       # the one sync per tick
         self.host_syncs["tick"] += 1
 
         # ---- 2) float phase ---------------------------------------------
-        v = bucket_apply(st.v, st.upd_vec[slot:slot + 1], self._ones1,
-                         has_arr)
-        upd_vec = st.upd_vec.clone()
+        upd_vec, upd_kvec = st.upd_vec, st.upd_kvec
+        ovf_vec, ovf_kvec = st.ovf_vec, st.ovf_kvec
+        if far_tier:
+            # the due overflow entry, added before the ring slot: the
+            # reference's order (overflow + ring slot); no entry due
+            # gives +0.0, as the reference's no-pop branch does
+            hit_f = ovf_hit.to(F32)
+            any_hit = ovf_hit.any()
+            ovf_due = torch.where(any_hit, (st.ovf_vec * hit_f[:, None])
+                                  .sum(0), 0.0)
+            ovf_vec = torch.where(ovf_hit[:, None], 0.0, st.ovf_vec)
+            if strat.stratified:
+                kvec_ovf = torch.where(any_hit, (st.ovf_kvec * hit_f[
+                    :, None, None]).sum(0), 0.0)
+                ovf_kvec = torch.where(ovf_hit[:, None, None], 0.0,
+                                       st.ovf_kvec)
+        if strat.stratified:
+            # FedAsync: decay each sender-k stratum of the due bucket by
+            # its staleness: R rows into one bucket_apply
+            kvec_due = upd_kvec[slot]
+            if far_tier:
+                kvec_due = kvec_ovf + kvec_due
+            v = bucket_apply(st.v, kvec_due, self._dec_rows[sk0 & (R - 1)],
+                             has_arr)
+            buf_vec = st.buf_vec
+        else:
+            arr_due = upd_vec[slot]
+            if far_tier:
+                arr_due = ovf_due + arr_due
+            if strat.buffered:
+                buf_vec = torch.where(has_arr, st.buf_vec + arr_due,
+                                      st.buf_vec)
+                v = bucket_apply(st.v, buf_vec[None, :], self._ones1, flush)
+                buf_vec = torch.where(flush, 0.0, buf_vec)
+            else:
+                v = bucket_apply(st.v, arr_due[None, :], self._ones1,
+                                 has_arr)
+                buf_vec = st.buf_vec
+        upd_vec = upd_vec.clone()
         upd_vec[slot] = 0.0
+        if strat.stratified:
+            upd_kvec = upd_kvec.clone()
+            upd_kvec[slot] = 0.0
         bc_v = (torch.where(fired[:, None], v[None, :], st.bc_v)
                 if preds.cascades else st.bc_v)
         w = (tick_deliver(st.w, st.U, bc_v, best, take, eta)
@@ -331,59 +459,172 @@ class DeviceCohortEngine:
             bytes_up = bytes_up + done_i * self.upd_bytes
             # update latency addressed by (client, round): st.i is the
             # pre-increment round, as in the reference
-            arr_slot = (t + self._plan.update_ticks(st.i)) & (L - 1)
-            in_ls = [done & (arr_slot == sl) for sl in range(L)]
-            any_g = torch.stack([m.any() for m in in_ls])           # [G]
-            wgt = torch.stack([eta * m.to(torch.float32)
-                               for m in in_ls])                     # [G, C]
-            oh_l = (arr_slot[:, None] == self._ar_L) & done[:, None]
-            oh_r = (st.i & (R - 1))[:, None] == self._ar_R
+            arr_off = self._update_offsets(st.i)
+            arr_slot = (t + arr_off) & (L - 1)
+            near = done & (arr_off < L) if far_tier else done
+            oh_l = (arr_slot[:, None] == self._ar_L) & near[:, None]  # [C, L]
+            oh_r = (st.i & (R - 1))[:, None] == self._ar_R            # [C, R]
             oh_s = (k & (R - 1))[:, None] == self._ar_R
             upd_cnt = upd_cnt + (oh_l[:, :, None] & oh_r[:, None, :]).sum(
                 dim=0, dtype=I32)
             upd_ks = upd_ks + (oh_l[:, :, None] & oh_s[:, None, :]).sum(
                 dim=0, dtype=I32)
-            ops[OP_RING_SCATTERS] += any_g.sum(dtype=I32)
+            ops[OP_RING_SCATTERS] += oh_l.any(0).sum(dtype=I32)
             if self.dp_on:
-                noise = (prng.normal(prng.fold_in(self._noise_base, t),
-                                     (self.C, self.D), device=self.device)
-                         if self.noise_scale > 0.0 else None)
-                # the weighted sum (agg) is computed and not used: the
-                # ring scatter below re-weights by arrival slot
-                sent, _ = cohort_clip_noise(
-                    U, noise, eta * done.to(torch.float32), done,
-                    clip=self.dp_round_clip, noise_scale=self.noise_scale)
+                sent = self._clip_noise(U, eta, done, t)
             else:
                 sent = U
-            w, U, upd_vec = tick_scatter(sent, w, U, upd_vec, wgt, any_g,
-                                         done, eta, dp_on=self.dp_on)
+            # the ring scatter: one row per near slot, or per (slot,
+            # sender-k stratum) under FedAsync, sl-major
+            if strat.stratified:
+                masks = (oh_l[:, :, None] & oh_s[:, None, :]).reshape(
+                    C, L * R).T
+                rows = upd_kvec.reshape(L * R, self.D)
+            else:
+                masks = oh_l.T
+                rows = upd_vec
+            wgt = eta[None, :] * masks.to(F32)                      # [G, C]
+            w, U, rows = tick_scatter(sent, w, U, rows, wgt, masks.any(1),
+                                      done, eta, dp_on=self.dp_on)
+            if strat.stratified:
+                upd_kvec = rows.reshape(L, R, self.D)
+            else:
+                upd_vec = rows
+            if preds.any_far:
+                ovf_vec, ovf_kvec = self._far_insert(sent, eta, k, far,
+                                                     ovf_vec, ovf_kvec)
 
+        if not preds.any_done:
+            i_new = st.i        # same tensor: the update draws stay cached
         server_k = st.server_k + ncasc
         return st._replace(
             w=w, U=U, v=v, i=i_new, h=h_new, k=k, credit=credit_new,
             server_k=server_k, tick=st.tick + 1, upd_vec=upd_vec,
             upd_cnt=upd_cnt, h_counts=hc, bc_v=bc_v, bc_k=bc_k,
-            bc_at=bc_at, messages=messages,
-            broadcasts=st.broadcasts + ncasc, part=part,
-            bytes_up=bytes_up, stale_hist=stale_hist, upd_ks=upd_ks,
-            ops=ops), preds
+            bc_at=bc_at, ovf_vec=ovf_vec, ovf_at=ovf_at, ovf_cnt=ovf_cnt,
+            err=err, messages=messages, broadcasts=st.broadcasts + ncasc,
+            part=part, bytes_up=bytes_up, stale_hist=stale_hist,
+            upd_ks=upd_ks, ovf_ks=ovf_ks, ovf_hwm=ovf_hwm,
+            far_msgs=far_msgs, upd_kvec=upd_kvec, ovf_kvec=ovf_kvec,
+            buf_vec=buf_vec, buf_cnt=buf_cnt, ops=ops), preds
+
+    def _clip_noise(self, U, eta, done, t: int):
+        """Round-completion DP of the finishing rows; the weighted sum
+        (agg) is computed and not used: the ring scatter re-weights by
+        arrival slot."""
+        wts = eta * done.to(F32)
+        key = prng.fold_in(self._noise_base, t)            # CPU scalar key
+        if self.dp_rng == "in_kernel":
+            sent, _ = cohort_clip_noise_prng(
+                U, key, wts, done, clip=self.dp_round_clip,
+                noise_scale=self.noise_scale)
+            return sent
+        noise = (prng.normal(key, (self.C, self.D), device=self.device)
+                 if self.noise_scale > 0.0 else None)
+        sent, _ = cohort_clip_noise(U, noise, wts, done,
+                                    clip=self.dp_round_clip,
+                                    noise_scale=self.noise_scale)
+        return sent
+
+    def _far_plan(self, t, i, k, far_mask, any_far, ovf_at, ovf_cnt,
+                  ovf_ks, err, ovf_hwm, far_msgs, ops):
+        """The overflow bucket's integer update for this tick's far
+        arrivals, all on the device.
+
+        The reference inserts the distinct far arrival ticks one by one,
+        ascending, at most F of them: a tick that already has a slot
+        merges into it, a new tick takes the lowest free slot.  Arrival
+        offsets past the ring are exactly the plan's far tick values, so
+        the groups are known by value: a group ranked below F is
+        processed; unmatched processed groups take the free slots in
+        ascending order; a non-empty group that is not written (past F,
+        or no free slot) sets the error latch."""
+        R, Q = self.R, self.Q
+        arr_off = self._update_offsets(i)
+        grp = far_mask[None, :] & (arr_off[None, :]
+                                   == self._far_vals[:, None])       # [V, C]
+        any_grp = grp.any(1)
+        rank = torch.cumsum(any_grp.to(I32), 0) - 1
+        proc = any_grp & (rank < self.F)
+        tick_q = t + self._far_vals                                   # [V]
+        match = ovf_at[None, :] == tick_q[:, None]                    # [V, Q]
+        has_match = match.any(1)
+        unmatched = proc & ~has_match
+        urank = torch.cumsum(unmatched.to(I32), 0) - 1
+        free = ovf_at == 0
+        frank = torch.cumsum(free.to(I32), 0) - 1
+        fsel = (free[None, :] & (frank[None, :] == urank[:, None])
+                & unmatched[:, None])
+        idx = torch.where(has_match, match.to(I32).argmax(1),
+                          fsel.to(I32).argmax(1))
+        write = proc & (has_match | fsel.any(1))
+        err = err | (any_grp & ~write).any().to(I32)
+        wq = write[:, None] & (idx[:, None] == self._ar_Q[None, :])   # [V, Q]
+        wq_i = wq.to(I32)
+        oh_r = (i & (R - 1))[:, None] == self._ar_R                   # [C, R]
+        oh_s = (k & (R - 1))[:, None] == self._ar_R
+        cnt = (grp[:, :, None] & oh_r[None]).sum(1, dtype=I32)        # [V, R]
+        cnt_ks = (grp[:, :, None] & oh_s[None]).sum(1, dtype=I32)
+        ovf_cnt = ovf_cnt + (wq_i[:, :, None] * cnt[:, None, :]).sum(
+            0, dtype=I32)
+        ovf_ks = ovf_ks + (wq_i[:, :, None] * cnt_ks[:, None, :]).sum(
+            0, dtype=I32)
+        written_q = wq.any(0)
+        ovf_at = torch.where(written_q, (wq_i * tick_q[:, None]).sum(0,
+                                                                  dtype=I32),
+                             ovf_at)
+        # occupancy high-water mark, sampled after this tick's inserts,
+        # only on ticks that route to the far tier
+        ovf_hwm = torch.where(any_far, torch.maximum(
+            ovf_hwm, (ovf_at != 0).sum(dtype=I32)), ovf_hwm)
+        far_msgs = far_msgs + far_mask.sum(dtype=I32)
+        ops[OP_FAR_TICKS] += any_far.to(I32)
+        ops[OP_FAR_GROUPS] += proc.sum(dtype=I32)
+        plan = _FarPlan(grp=grp, slot_of_q=wq_i.argmax(0),
+                        written_q=written_q)
+        return ovf_at, ovf_cnt, ovf_ks, err, ovf_hwm, far_msgs, ops, plan
+
+    def _far_insert(self, sent, eta, k, far: _FarPlan, ovf_vec, ovf_kvec):
+        """Float half of the far tier: each written slot adds its group's
+        weighted sum ``sum_c eta_c * sent[c]`` (one product with the
+        ``[V, C]`` group weights); under FedAsync per sender-k stratum,
+        each guarded so an empty stratum stays bitwise untouched."""
+        g_w = eta[None, :] * far.grp.to(F32)                          # [V, C]
+        if self.strategy.stratified:
+            R = self.R
+            oh_s = (k & (R - 1))[:, None] == self._ar_R               # [C, R]
+            grp_r = far.grp[:, :, None] & oh_s[None]             # [V, C, R]
+            w_r = (g_w[:, :, None] * oh_s[None].to(F32)).permute(0, 2, 1)
+            vecs = (w_r.reshape(-1, self.C) @ sent).reshape(
+                -1, R, self.D)                                  # [V, R, D]
+            take = far.slot_of_q
+            any_r = grp_r.any(1)[take]                                 # [Q, R]
+            upd = far.written_q[:, None] & any_r
+            ovf_kvec = torch.where(upd[:, :, None], ovf_kvec + vecs[take],
+                                   ovf_kvec)
+            return ovf_vec, ovf_kvec
+        vecs = g_w @ sent                                              # [V, D]
+        ovf_vec = torch.where(far.written_q[:, None],
+                              ovf_vec + vecs[far.slot_of_q], ovf_vec)
+        return ovf_vec, ovf_kvec
 
     # -- segments -----------------------------------------------------------
     def segment(self, target_k: int, tick_limit: int) -> int:
-        """Advance ``self.state`` until ``server_k >= target_k`` or the
-        tick budget runs out; returns ``server_k``."""
+        """Advance ``self.state`` until ``server_k >= target_k``, the tick
+        budget runs out or the overflow bucket's error latch is set;
+        returns ``server_k``."""
         st = self.state
         tick, sk, err = torch.stack([st.tick, st.server_k, st.err]).tolist()
         self.host_syncs["segment"] += 1
         while sk < target_k and tick < tick_limit and err == 0:
             st, p = self._tick(st, tick + 1, sk)
-            tick, sk = tick + 1, sk + p.cascades
+            tick, sk, err = tick + 1, sk + p.cascades, p.err
             had_block = p.any_block
             if (self.fuse_ticks and sk < target_k and tick < tick_limit
-                    and p.next_no_block):
+                    and err == 0 and p.next_no_block):
                 # a protocol-only next tick rides in this iteration
                 st, p = self._tick(st, tick + 1, sk)
-                tick, sk = tick + 1, sk + p.cascades
+                tick, sk, err = tick + 1, sk + p.cascades, p.err
                 had_block = had_block or p.any_block
             st = st._replace(iters=st.iters + self._iter_inc[int(had_block)])
         self.state = st
@@ -403,6 +644,10 @@ class DeviceCohortEngine:
     @property
     def total_broadcasts(self) -> int:
         return int(self.state.broadcasts)
+
+    @property
+    def overflow_slots(self) -> int:
+        return self.Q if self.F else 0
 
     # -- main loop ----------------------------------------------------------
     def run(self, *, max_rounds: int, eval_every: int = 1,
@@ -432,9 +677,21 @@ class DeviceCohortEngine:
             first_segment = False
             st = self.state
             if sk < target:
+                if int(st.err) != 0:
+                    raise RuntimeError(
+                        f"device engine overflow bucket exhausted at "
+                        f"tick {int(st.tick)} (Q={self.Q} slots, "
+                        f"F={self.F} far groups/tick, ring L={self.L}): "
+                        f"too many distinct far arrival ticks in flight "
+                        f"— raise Scenario.ring_cap (now "
+                        f"{self._plan.scenario.ring_cap}) or shorten the "
+                        f"latency tail")
                 raise RuntimeError(
                     f"cohort engine stalled: {int(st.tick)} ticks, "
-                    f"server_k={sk} < {max_rounds}")
+                    f"server_k={sk} < {max_rounds} (in flight: "
+                    f"{int(st.upd_cnt.sum()) + int(st.ovf_cnt.sum())} "
+                    f"updates, {int((st.bc_at > st.tick).any(1).sum())} "
+                    f"broadcasts)")
             if sk >= next_eval:
                 with timer.phase("eval"):
                     m = evals(st.v)
@@ -450,7 +707,8 @@ class DeviceCohortEngine:
         final.update(round=sk, time=int(st.tick) * self.dt,
                      messages=int(st.messages),
                      broadcasts=int(st.broadcasts),
-                     overflow_hwm=int(st.ovf_hwm), overflow_slots=0,
+                     overflow_hwm=int(st.ovf_hwm),
+                     overflow_slots=self.overflow_slots,
                      far_messages=int(st.far_msgs))
         report = self.telemetry_report(wall=timer.as_dict())
         if self._trace:
@@ -483,7 +741,8 @@ class DeviceCohortEngine:
             participation=st.part.cpu().numpy().astype(np.int64),
             bytes_up=st.bytes_up.cpu().numpy().astype(np.int64),
             staleness_hist=st.stale_hist.cpu().numpy().astype(np.int64),
-            overflow_hwm=int(st.ovf_hwm), overflow_slots=0,
+            overflow_hwm=int(st.ovf_hwm),
+            overflow_slots=self.overflow_slots,
             far_messages=int(st.far_msgs), ticks=int(st.tick),
             ops=st.ops.cpu().numpy().astype(np.int64),
             dp_sigma=self.dp_sigma, dp_delta=self.dp_delta,

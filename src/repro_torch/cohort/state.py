@@ -100,8 +100,8 @@ class DeviceCohortState(NamedTuple):
         reaches past the L-slot ring (heavy-tailed tables under the
         ``Scenario.ring_cap`` boundary).  Entries merge by exact arrival
         tick; ``ovf_at == 0`` marks a free slot and ``err`` latches
-        capacity exhaustion.  The port does not route to it yet (ROADMAP
-        Queue 1 item 7): its fields are [1, ...] placeholders.
+        capacity exhaustion.  Without a far tier (every latency inside
+        the ring) its fields are [1, ...] placeholders.
     """
     w: Any                 # [C, D] f32 client models
     U: Any                 # [C, D] f32 round-update accumulators
@@ -137,9 +137,8 @@ class DeviceCohortState(NamedTuple):
     ovf_ks: Any            # [Q, R] i32 overflow counts by sender k mod R
     ovf_hwm: Any           # []     i32 overflow occupancy high-water mark
     far_msgs: Any          # []     i32 updates routed to the far tier
-    # aggregation-strategy buffers: [1, ...] placeholders under the
-    # paper strategy, the only one ported (FedAsync/FedBuff: ROADMAP
-    # Queue 1 item 8).
+    # aggregation-strategy buffers: full size only under the strategy
+    # that uses them, [1, ...] placeholders otherwise.
     # ``upd_kvec``/``ovf_kvec`` are the sender-k STRATIFIED counterparts
     # of ``upd_vec``/``ovf_vec`` — FedAsync must decay each arriving
     # vector by its own staleness at apply time, so pre-summing across

@@ -68,4 +68,4 @@ class FLConfig:
     engine: str = "device"        # the port runs the device engine only
     cohort_block: int = 64        # iteration credit per cohort tick
     scenario: Optional[Any] = None     # scenario preset name or Scenario
-    aggregation: Optional[Any] = None  # strategy spec (paper only so far)
+    aggregation: Optional[Any] = None  # strategy spec (paper/fedasync/fedbuff)

@@ -1,11 +1,19 @@
-"""Launcher of the cohort clip+noise kernel (``csrc/cohort_dp.cu``).
+"""Launchers of the cohort clip+noise kernels (``csrc/cohort_dp.cu``).
 
-Replaces the reference's Pallas ``_row_sqsum`` + ``cohort_clip_noise_kernel``
-(``repro/kernels/cohort_dp/kernel.py``, operand-noise path): per-row
-clip, noise from an operand, weighted sum over clients.  A memory-bound
-f32 stream over [C, D]; see the source's note for the design.  The
-in-kernel-RNG variant (``cohort_clip_noise_prng_kernel``) is ROADMAP
-Queue 2 item 5.
+Replace the reference's Pallas kernels of
+``repro/kernels/cohort_dp/kernel.py``:
+
+* ``cohort_clip_noise_kernel`` <- ``_row_sqsum`` +
+  ``cohort_clip_noise_kernel`` (noise from an operand);
+* ``cohort_clip_noise_prng_kernel`` <- ``cohort_clip_noise_prng_kernel``
+  (noise generated in the kernel from a counter-based threefry stream
+  keyed by the tick's noise key).
+
+Per-row clip, Gaussian noise, weighted sum over clients; see the
+source's note for the design.  ``prng_words_probe`` returns the
+generator's raw words, so a check can hold the stream itself against
+``repro_torch.prng``; it is a probe, not a kernel of the engine's path,
+and is not counted.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ from repro_torch import _build
 from repro_torch.kernels.launches import LAUNCHES
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U, _LL = ctypes.c_uint32, ctypes.c_longlong
 _lib = None
 
 
@@ -26,8 +35,12 @@ def _dp():
         lib = _build.load("cohort_dp")
         lib.dp_blocks.argtypes = [_I]
         lib.dp_clip_noise.argtypes = [_P] * 7 + [_I, _I, _F, _F, _P]
-        lib.dp_blocks.restype = _I
-        lib.dp_clip_noise.restype = _I
+        lib.dp_clip_noise_prng.argtypes = ([_P, _U, _U] + [_P] * 5
+                                           + [_I, _I, _F, _F, _P])
+        lib.dp_prng_words.argtypes = [_U, _U, _LL, _P, _P, _P]
+        for fn in (lib.dp_blocks, lib.dp_clip_noise, lib.dp_clip_noise_prng,
+                   lib.dp_prng_words):
+            fn.restype = _I
         _lib = lib
     return _lib
 
@@ -55,3 +68,49 @@ def cohort_clip_noise_kernel(u, noise, weights, mask, *, clip: float,
         _build.stream(dev)), "cohort_clip_noise")
     LAUNCHES["cohort_clip_noise"] += 1
     return out, agg
+
+
+def key_words(key):
+    """A CPU key ``[2]`` -> its two uint32 words as Python ints (kernel
+    scalars: passing them costs no copy)."""
+    if key.device.type != "cpu" or tuple(key.shape) != (2,):
+        raise ValueError("the noise key is one [2] key on the CPU")
+    k0, k1 = key.tolist()
+    return int(k0), int(k1)
+
+
+def cohort_clip_noise_prng_kernel(u, key, weights, mask, *, clip: float,
+                                  noise_scale: float):
+    """u [C, D] f32; key [2] CPU int64 (two uint32 words); weights, mask
+    [C] f32 -> (out [C, D], agg [D]), the normals generated in the
+    kernel from the counter stream of ``key``."""
+    C, D = u.shape
+    dev = u.device
+    _build.need(u, "u", torch.float32, (C, D), dev)
+    _build.need(weights, "weights", torch.float32, (C,), dev)
+    _build.need(mask, "mask", torch.float32, (C,), dev)
+    k0, k1 = key_words(key)
+    lib = _dp()
+    out = torch.empty_like(u)
+    agg = torch.empty((D,), dtype=torch.float32, device=dev)
+    partial = torch.empty((lib.dp_blocks(C), D), dtype=torch.float32,
+                          device=dev)
+    _build.check(lib.dp_clip_noise_prng(
+        u.data_ptr(), k0, k1, mask.data_ptr(), weights.data_ptr(),
+        out.data_ptr(), agg.data_ptr(), partial.data_ptr(), C, D,
+        float(clip), float(noise_scale), _build.stream(dev)),
+        "cohort_clip_noise_prng")
+    LAUNCHES["cohort_clip_noise_prng"] += 1
+    return out, agg
+
+
+def prng_words_probe(key, n: int, device):
+    """The kernel's counter stream for flat indices ``0 .. n - 1``: both
+    threefry output words as int64 tensors of uint32 values."""
+    k0, k1 = key_words(key)
+    w0 = torch.empty((n,), dtype=torch.int32, device=device)
+    w1 = torch.empty((n,), dtype=torch.int32, device=device)
+    _build.check(_dp().dp_prng_words(k0, k1, n, w0.data_ptr(), w1.data_ptr(),
+                                     _build.stream(device)), "dp_prng_words")
+    mask = 0xFFFFFFFF
+    return w0.to(torch.int64) & mask, w1.to(torch.int64) & mask

@@ -1,8 +1,17 @@
-"""Plain PyTorch version of the cohort clip+noise+accumulate kernel,
-op for op the reference's ``repro/kernels/cohort_dp/ref.py``."""
+"""Plain PyTorch versions of the cohort clip+noise+accumulate kernels:
+the operand-noise one op for op the reference's
+``repro/kernels/cohort_dp/ref.py``, and the in-kernel-noise one with the
+CUDA kernel's counter stream and Box-Muller."""
 from __future__ import annotations
 
 import torch
+
+from repro_torch import prng
+
+# f32 constants of the TPU kernel's Box-Muller (kernel.py:80-82)
+_TWO_M24 = 2.0 ** -24
+_TWO_M25 = 2.0 ** -25
+_TWO_PI_F32 = 6.2831854820251465          # float32(2 * pi)
 
 
 def cohort_clip_noise_ref(u, noise, weights, mask, *, clip: float,
@@ -33,3 +42,27 @@ def cohort_clip_noise_ref(u, noise, weights, mask, *, clip: float,
         out = out + (noise_scale * mask)[:, None] * noise.to(torch.float32)
     agg = torch.sum(out * weights.to(torch.float32)[:, None], dim=0)
     return out, agg
+
+
+def counter_normals(key, C: int, D: int, device=None) -> torch.Tensor:
+    """[C, D] standard normals of the in-kernel stream: threefry2x32 of
+    ``key`` on each element's flat index ``c * D + d`` (x0 -> b1, x1 ->
+    b2), then Box-Muller on the top 24 bits of each word, in f32:
+    ``u1 = (b1 >> 8) 2^-24 + 2^-25``, ``u2 = (b2 >> 8) 2^-24``,
+    ``n = sqrt(-2 log u1) cos(2 pi u2)``."""
+    b1, b2 = prng.counter_words(key, C * D, device=device)
+    u1 = (b1 >> 8).to(torch.float32) * _TWO_M24 + _TWO_M25
+    u2 = (b2 >> 8).to(torch.float32) * _TWO_M24
+    n = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI_F32 * u2)
+    return n.reshape(C, D)
+
+
+def cohort_clip_noise_prng_ref(u, key, weights, mask, *, clip: float,
+                               noise_scale: float):
+    """``cohort_clip_noise_ref`` with the normals of ``counter_normals``
+    (drawn only when ``noise_scale > 0``); ``key`` is one CPU key."""
+    C, D = u.shape
+    noise = (counter_normals(key, C, D, device=u.device)
+             if noise_scale > 0.0 else None)
+    return cohort_clip_noise_ref(u, noise, weights, mask, clip=clip,
+                                 noise_scale=noise_scale)

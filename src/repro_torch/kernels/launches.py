@@ -7,7 +7,8 @@ kernels: zero the counts, drive the path, read them.
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"bucket_apply": 0, "tick_deliver": 0,
-                            "tick_scatter": 0, "cohort_clip_noise": 0}
+                            "tick_scatter": 0, "cohort_clip_noise": 0,
+                            "cohort_clip_noise_prng": 0}
 
 
 def reset() -> None:

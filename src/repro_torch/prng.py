@@ -86,6 +86,16 @@ def _scalar_key(key: torch.Tensor) -> Tuple[int, int]:
     return int(k0), int(k1)
 
 
+def counter_words(key: torch.Tensor, n: int,
+                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both output words ``(x0, x1)`` of ``threefry2x32(key, (hi, lo))``
+    over the flat indices ``0 .. n - 1`` (the counters ``random_bits``
+    hashes).  ``key`` is one key, kept on the CPU."""
+    k0, k1 = _scalar_key(key)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return threefry2x32(k0, k1, idx >> 32, idx & MASK32)
+
+
 def random_bits(key: torch.Tensor, shape: Sequence[int],
                 device=None) -> torch.Tensor:
     """32 random bits per element (int64 tensor holding uint32 values),
@@ -93,17 +103,60 @@ def random_bits(key: torch.Tensor, shape: Sequence[int],
 
     ``key`` is one key; keep it on the CPU — its two words become kernel
     scalars, so the draw itself makes no host round trip."""
-    k0, k1 = _scalar_key(key)
     n = int(np.prod(shape)) if len(shape) else 1
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    b0, b1 = threefry2x32(k0, k1, idx >> 32, idx & MASK32)
+    b0, b1 = counter_words(key, n, device=device)
     return (b0 ^ b1).reshape(tuple(shape))
+
+
+def keys_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.vmap(lambda k: jax.random.bits(k, shape))(keys)`` for a
+    batch of keys ``[N, 2]`` -> ``[N, *shape]`` on the keys' device."""
+    n = int(np.prod(shape)) if len(shape) else 1
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)
+    b0, b1 = threefry2x32(keys[:, 0:1], keys[:, 1:2], idx >> 32,
+                          idx & MASK32)
+    return (b0 ^ b1).reshape((keys.shape[0],) + tuple(shape))
+
+
+def keys_uniform(keys: torch.Tensor, shape: Sequence[int] = ()
+                 ) -> torch.Tensor:
+    """``jax.vmap(lambda k: jax.random.uniform(k, shape))(keys)`` (f32 in
+    [0, 1)) for a batch of keys ``[N, 2]`` -> ``[N, *shape]``."""
+    return _bits_to_unit(keys_bits(keys, shape))
 
 
 def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     """uint32 bits -> f32 in [0, 1): mantissa of a float in [1, 2), - 1."""
     fb = ((bits >> 9) | 0x3F800000).to(torch.int32)
     return fb.view(torch.float32) - 1.0
+
+
+def cumsum_xla(x: torch.Tensor) -> torch.Tensor:
+    """f32 prefix sums over the last axis in XLA's CPU order (the
+    reduce-window rewrite behind ``jnp.cumsum``): sequential sums inside
+    chunks of 16 from 0.0, plus the sequential exclusive prefix of the
+    chunk totals.  Draws that feed a ``jnp.cumsum`` in the reference
+    (renewal switch times, table-weight CDFs) go through this, not
+    ``torch.cumsum``, whose order differs."""
+    n = x.shape[-1]
+    if n > 256:
+        raise ValueError(f"cumsum_xla covers up to 256 terms, got {n}")
+    m = -(-n // 16)
+    xp = torch.nn.functional.pad(x, (0, 16 * m - n))
+    ch = xp.reshape(x.shape[:-1] + (m, 16))
+    acc = torch.zeros_like(ch[..., 0])
+    inner = []
+    for j in range(16):
+        acc = acc + ch[..., j]
+        inner.append(acc)
+    inner = torch.stack(inner, dim=-1)                  # [..., m, 16]
+    off = [torch.zeros_like(inner[..., 0, 15])]
+    tot = off[0]
+    for c in range(1, m):
+        tot = tot + inner[..., c - 1, 15]
+        off.append(tot)
+    out = inner + torch.stack(off, dim=-1)[..., None]
+    return out.reshape(x.shape[:-1] + (16 * m,))[..., :n]
 
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,

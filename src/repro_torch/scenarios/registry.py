@@ -1,24 +1,36 @@
-"""Scenario specs, the ``uniform`` preset, and the constant-tick plan.
+"""Scenario specs, named presets, trace ingestion and the engine plan
+(the reference's ``repro/scenarios/registry.py``).
 
-A ``Scenario`` bundles message latency (``LatencyTable``), availability
-and compute speed.  The port covers the reference's constant-tick path:
-one latency table whose every bin quantizes to the same tick count at
-the engine's ``dt`` (the ``uniform`` preset at the usual ``dt >= 0.1``),
-full availability, caller-supplied speeds.  Tables that quantize to
-several tick counts (sampled latency, the overflow bucket), churn and
-speed models are ROADMAP Queue 1 item 7 and raise ``NotImplementedError``.
+A ``Scenario`` bundles message latency (one ``LatencyTable`` or a tuple
+of them with a ``TableAssignment``), availability and compute speed.
+``ScenarioPlan`` is one engine instance's view at tick length ``dt``:
+per-client ``[C, K]`` alias rows on the device, the near/far split of
+the update ring, and message-addressed draws on the reference's key
+chain, so the port draws the same arrival ticks:
+
+    lat_base  = PRNGKey(seed ^ LAT_SALT)
+    update    (c, i): fold_in(fold_in(fold_in(lat_base, 0), c), i)
+    broadcast (k, c): fold_in(fold_in(fold_in(lat_base, 1), k), c)
+
+Presets: ``uniform``, ``mobile_diurnal``, ``iot_straggler``,
+``geo_regional`` and ``sensor_renewal``.  The event simulator's
+continuous-seconds draws wait for its slice (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.scenarios.tables import LatencyTable
-
-_ITEM7 = "ROADMAP Queue 1 item 7: remaining scenarios"
+from repro_torch import prng
+from repro_torch.analysis.salts import LAT_SALT, TABLE_SALT
+from repro_torch.scenarios.availability import (AlwaysOn, Churn, Diurnal,
+                                                RegionalChurn, RenewalChurn,
+                                                SpeedModel)
+from repro_torch.scenarios.tables import (LatencyTable, alias_sample_rows,
+                                          key_uniforms, vose_alias)
 
 
 def next_pow2(n: int) -> int:
@@ -28,44 +40,122 @@ def next_pow2(n: int) -> int:
     return p
 
 
+def draw_table_ids(C: int, T: int, weights, seed: int) -> np.ndarray:
+    """[C] int32 table ids for ``TableAssignment("draw")``: one uniform
+    per client from ``fold_in(PRNGKey(seed ^ TABLE_SALT), c)`` inverted
+    through the normalized-weight CDF.  ``weights=None`` is uniform."""
+    base = prng.PRNGKey(seed ^ TABLE_SALT)
+    keys = prng.fold_in(base[None, :], torch.arange(C))
+    u = prng.keys_uniform(keys, ())                          # [C]
+    w = (torch.tensor(weights, dtype=torch.float32) if weights is not None
+         else torch.ones(T, dtype=torch.float32))
+    cum = prng.cumsum_xla(w / w.sum())
+    return (u[:, None] >= cum[None, :-1]).sum(dim=1).to(torch.int32).numpy()
+
+
 @dataclass(frozen=True)
-class AlwaysOn:
-    """Full availability — the default regime."""
-    duty: float = 1.0
+class TableAssignment:
+    """[C]-indexed mapping of clients onto a scenario's latency tables.
+
+    kinds: ``cycle`` (client c uses table c % T), ``explicit`` (the full
+    [C] tuple ``table_id``), ``draw`` (``draw_table_ids`` from
+    ``weights``, uniform when omitted)."""
+    kind: str = "cycle"
+    table_id: Optional[Tuple[int, ...]] = None
+    weights: Optional[Tuple[float, ...]] = None
+
+    def __post_init__(self):
+        if self.kind not in ("cycle", "explicit", "draw"):
+            raise ValueError(f"unknown table assignment kind "
+                             f"{self.kind!r} (want cycle|explicit|draw)")
+        if self.kind == "explicit":
+            if self.table_id is None:
+                raise ValueError("explicit table assignment needs "
+                                 "table_id")
+            object.__setattr__(self, "table_id",
+                               tuple(int(x) for x in self.table_id))
+        if self.weights is not None:
+            w = tuple(float(x) for x in self.weights)
+            if any(x < 0.0 for x in w) or not sum(w) > 0.0:
+                raise ValueError("table assignment weights must be "
+                                 "non-negative and sum to > 0")
+            object.__setattr__(self, "weights", w)
+
+    def resolve(self, C: int, T: int, seed: int) -> np.ndarray:
+        """-> [C] int32 table ids, validated against C and T."""
+        if self.kind == "explicit":
+            if len(self.table_id) != C:
+                raise ValueError(
+                    f"table_id length {len(self.table_id)} does not "
+                    f"match n_clients {C}")
+            tid = np.asarray(self.table_id, np.int64)
+            if tid.size and (tid.min() < 0 or tid.max() >= T):
+                raise ValueError(
+                    f"table_id entries must lie in [0, {T}); got range "
+                    f"[{tid.min()}, {tid.max()}]")
+            return tid.astype(np.int32)
+        if self.kind == "draw":
+            if self.weights is not None and len(self.weights) != T:
+                raise ValueError(
+                    f"need one weight per table: {len(self.weights)} "
+                    f"weights for {T} tables")
+            return draw_table_ids(C, T, self.weights, seed)
+        return (np.arange(C) % T).astype(np.int32)
 
 
 @dataclass(frozen=True)
 class Scenario:
-    """Heterogeneity spec: latency table, availability, speeds."""
+    """Heterogeneity spec: latency (one table or a tuple with an
+    assignment), availability, speed model, and ``ring_cap``, the bound
+    on the engine's update ring — draws quantizing past it spill into
+    the overflow bucket."""
     name: str
-    latency: Any                    # LatencyTable
-    availability: Any = AlwaysOn()
-    speed_model: Optional[Any] = None
+    latency: Any                    # LatencyTable | tuple of LatencyTable
+    availability: Any = field(default_factory=AlwaysOn)
+    speed_model: Optional[SpeedModel] = None
+    assignment: Optional[TableAssignment] = None
     ring_cap: int = 32
 
     def __post_init__(self):
-        if not isinstance(self.latency, LatencyTable):
-            raise NotImplementedError(
-                f"per-client latency tables are not ported yet ({_ITEM7})")
-        if not isinstance(self.availability, AlwaysOn):
-            raise NotImplementedError(
-                f"availability models are not ported yet ({_ITEM7})")
-        if self.speed_model is not None:
-            raise NotImplementedError(
-                f"speed models are not ported yet ({_ITEM7})")
+        lat = self.latency
+        if isinstance(lat, (list, tuple)):
+            lat = tuple(lat)
+            if not lat:
+                raise ValueError("need at least one latency table")
+            if not all(isinstance(t, LatencyTable) for t in lat):
+                raise TypeError("latency tuple entries must be "
+                                "LatencyTables")
+            object.__setattr__(self, "latency", lat)
+        elif not isinstance(lat, LatencyTable):
+            raise TypeError(f"latency must be a LatencyTable or a tuple "
+                            f"of them, got {type(lat).__name__}")
+        if self.assignment is None and len(self.tables) > 1:
+            object.__setattr__(self, "assignment", TableAssignment())
         if self.ring_cap < 2:
             raise ValueError("need ring_cap >= 2")
 
+    @property
+    def tables(self) -> Tuple[LatencyTable, ...]:
+        lat = self.latency
+        return lat if isinstance(lat, tuple) else (lat,)
+
     def speeds(self, C: int, seed: int) -> Optional[np.ndarray]:
-        return None
+        if self.speed_model is None:
+            return None
+        return self.speed_model.draw(C, seed)
 
 
 class ScenarioPlan:
     """One engine instance's view of a scenario at tick length ``dt``.
 
-    Every message takes ``tick0`` ticks (the one quantized bin value),
-    so ``update_ticks`` / ``broadcast_ticks`` are a constant [C] tensor
-    and no latency key is drawn — the reference's ``_ticks_const`` path.
+    ``update_ticks(i)`` / ``broadcast_ticks(k)`` give [C] int32 arrival
+    offsets (>= 1) on ``device``; ``avail_mask(t)`` a bool [C] mask, or
+    is ``None`` when every client is always on.  When every client's
+    table quantizes to one tick count (the ``uniform`` preset at the
+    usual dt), the draws are skipped and one constant tensor is returned
+    — the reference's ``_ticks_const`` path.  Broadcast draws are cached
+    by ``k``: the engine asks for the few counters its cascade may fire
+    next, and each is drawn once.
     """
 
     def __init__(self, scenario: Scenario, *, C: int, seed: int, dt: float,
@@ -74,43 +164,102 @@ class ScenarioPlan:
         self.C = int(C)
         self.seed = int(seed)
         self.dt = float(dt)
-        values = np.asarray(scenario.latency.values, np.float64)
-        ticks = np.maximum(1, np.ceil(values / dt)).astype(np.int32)
-        if not (ticks == ticks[0]).all():
-            raise NotImplementedError(
-                f"latency bins quantize to {sorted(set(ticks.tolist()))} "
-                f"ticks at dt={dt}: sampled latency is not ported yet "
-                f"({_ITEM7})")
-        self.max_lat_ticks = int(ticks.max())
+        self.device = device
+        tables = scenario.tables
+        self.T = len(tables)
+        self.K = max(len(t.values) for t in tables)
+        if scenario.assignment is not None:
+            self.table_id = scenario.assignment.resolve(self.C, self.T, seed)
+        else:
+            self.table_id = np.zeros(self.C, np.int32)
+        padded = [t.padded(self.K) for t in tables]
+        vals_tk = np.stack([v for v, _ in padded])          # [T, K] f64
+        aliases = [vose_alias(p) for _, p in padded]
+        tid = self.table_id
+        self._values_c = vals_tk[tid]                       # [C, K] f64
+        self._prob_c = torch.tensor(
+            np.stack([a[0] for a in aliases])[tid], device=device)
+        self._alias_c = torch.tensor(
+            np.stack([a[1] for a in aliases])[tid].astype(np.int64),
+            device=device)
+        cidx = torch.arange(self.C, dtype=torch.int64, device=device)
+        self._cidx = cidx
+        lat_base = prng.PRNGKey(seed ^ LAT_SALT)
+        self._upd_base = prng.fold_in(lat_base, 0)
+        self._bc_base = prng.fold_in(lat_base, 1)
+        self._upd_client_keys = prng.fold_in(
+            self._upd_base.to(device)[None, :], cidx)       # [C, 2]
+        self._bc_cache: Dict[int, torch.Tensor] = {}
+
+        self.duty = float(scenario.availability.duty)
+        tick_c = np.maximum(1, np.ceil(self._values_c / self.dt)
+                            ).astype(np.int32)
+        self.max_lat_ticks = int(tick_c.max())
+        # near/far split: the update ring holds ring_ticks slots; draws
+        # past it go to the overflow bucket.  far_tick_values is the set
+        # of quantized bin values >= the boundary: it bounds how many
+        # distinct far arrival ticks one completion tick can produce.
         self.ring_ticks = next_pow2(min(self.max_lat_ticks + 1,
                                         scenario.ring_cap))
-        if self.max_lat_ticks >= self.ring_ticks:
-            raise NotImplementedError(
-                f"latency of {self.max_lat_ticks} ticks overflows the "
-                f"{self.ring_ticks}-slot ring: the overflow bucket is not "
-                f"ported yet ({_ITEM7})")
-        self.far_tick_values: Tuple[int, ...] = ()
-        self.duty = float(scenario.availability.duty)
-        self.tick0 = int(ticks[0])
-        self._tick0_c = torch.full((self.C,), self.tick0, dtype=torch.int32,
-                                   device=device)
+        self.far_tick_values = tuple(
+            int(v) for v in np.unique(tick_c[tick_c >= self.ring_ticks]))
+        self._ticks_const = bool((tick_c == tick_c[:, :1]).all())
+        self._tick0_c = torch.tensor(tick_c[:, 0], dtype=torch.int32,
+                                     device=device)
+        self._tick_vals_c = torch.tensor(tick_c, dtype=torch.int32,
+                                         device=device)
+        self.avail_mask: Optional[Callable[[int], torch.Tensor]] = \
+            scenario.availability.tick_plan(self.C, self.dt, self.seed,
+                                            device=device)
+
+    # -- tick-quantized draws ---------------------------------------------
+    def _draw_ticks(self, keys: torch.Tensor) -> torch.Tensor:
+        """Per-client alias draw from each client's table row, as ticks."""
+        j = alias_sample_rows(key_uniforms(keys), self._prob_c,
+                              self._alias_c)
+        return torch.gather(self._tick_vals_c, 1, j[:, None])[:, 0]
 
     def update_ticks(self, i: torch.Tensor) -> torch.Tensor:
-        """Arrival-tick offsets of every client's round-``i[c]`` update."""
-        return self._tick0_c
+        """Arrival-tick offsets of every client's round-``i[c]`` update
+        ([C] int tensor on the plan's device -> [C] int32, each >= 1)."""
+        if self._ticks_const:
+            return self._tick0_c
+        return self._draw_ticks(prng.fold_in(self._upd_client_keys,
+                                             i.to(torch.int64)))
 
-    def broadcast_ticks(self, k) -> torch.Tensor:
-        """Per-client arrival-tick offsets of broadcast ``k``."""
-        return self._tick0_c
+    def broadcast_ticks(self, k: int) -> torch.Tensor:
+        """Per-client arrival-tick offsets of broadcast ``k`` (a host int)
+        -> [C] int32."""
+        if self._ticks_const:
+            return self._tick0_c
+        k = int(k)
+        hit = self._bc_cache.get(k)
+        if hit is None:
+            bk = prng.fold_in(self._bc_base, k).to(self.device)
+            hit = self._draw_ticks(prng.fold_in(bk[None, :], self._cidx))
+            self._bc_cache[k] = hit
+            while len(self._bc_cache) > 64:   # counters only move up
+                self._bc_cache.pop(min(self._bc_cache))
+        return hit
 
 
-def _uniform() -> Scenario:
-    """The legacy default network: latency U(0.05, 0.1) virtual seconds,
-    full availability, caller-supplied speeds."""
-    return Scenario("uniform", LatencyTable.from_uniform(0.05, 0.1, 8))
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, Callable[[], Scenario]] = {}
 
 
-_PRESETS = {"uniform": _uniform}
+def register_scenario(name: str):
+    """Decorator: register a zero-arg Scenario builder under ``name``."""
+    def deco(fn: Callable[[], Scenario]):
+        _REGISTRY[name] = fn
+        return fn
+    return deco
+
+
+def scenario_names():
+    return sorted(_REGISTRY)
 
 
 def get_scenario(spec) -> Scenario:
@@ -118,16 +267,86 @@ def get_scenario(spec) -> Scenario:
     if isinstance(spec, Scenario):
         return spec
     if isinstance(spec, str):
-        if spec in ("mobile_diurnal", "iot_straggler", "geo_regional",
-                    "sensor_renewal"):
-            raise NotImplementedError(
-                f"scenario preset {spec!r} is not ported yet ({_ITEM7})")
-        if spec not in _PRESETS:
+        if spec not in _REGISTRY:
             raise KeyError(f"unknown scenario {spec!r} "
-                           f"(have {sorted(_PRESETS)})")
-        return _PRESETS[spec]()
+                           f"(have {scenario_names()})")
+        return _REGISTRY[spec]()
     raise TypeError(f"scenario must be a Scenario or preset name, "
                     f"got {type(spec).__name__}")
+
+
+@register_scenario("uniform")
+def _uniform() -> Scenario:
+    """The legacy default network: latency U(0.05, 0.1) virtual seconds,
+    full availability, caller-supplied speeds."""
+    return Scenario("uniform", LatencyTable.from_uniform(0.05, 0.1, 8))
+
+
+@register_scenario("mobile_diurnal")
+def _mobile_diurnal() -> Scenario:
+    """Phone fleet: lognormal latency, diurnal windows with per-client
+    phase, bimodal fast/slow devices."""
+    return Scenario(
+        "mobile_diurnal",
+        LatencyTable.from_lognormal(median=0.3, sigma=0.8, n_bins=12),
+        Diurnal(period_s=512.0, on_frac=0.75),
+        SpeedModel(kind="bimodal", slow=0.3, slow_frac=0.3))
+
+
+@register_scenario("iot_straggler")
+def _iot_straggler() -> Scenario:
+    """Sensor fleet: Pareto-tail latency, epoch churn, Zipf long-tail
+    compute speeds."""
+    return Scenario(
+        "iot_straggler",
+        LatencyTable.from_pareto(scale=0.1, alpha=1.2, n_bins=12,
+                                 q_hi=0.99),
+        Churn(p_available=0.9, epoch_s=64.0),
+        SpeedModel(kind="zipf", alpha=0.5))
+
+
+@register_scenario("geo_regional")
+def _geo_regional() -> Scenario:
+    """Geo-distributed fleet: two network populations assigned per
+    client, with correlated regional outages."""
+    return Scenario(
+        "geo_regional",
+        (LatencyTable.from_lognormal(median=0.08, sigma=0.4, n_bins=8),
+         LatencyTable.from_lognormal(median=0.5, sigma=0.9, n_bins=8)),
+        RegionalChurn(n_regions=4, p_available=0.9, p_region_up=0.95,
+                      epoch_s=64.0),
+        SpeedModel(kind="lognormal", sigma=0.4),
+        assignment=TableAssignment("draw", weights=(0.6, 0.4)))
+
+
+@register_scenario("sensor_renewal")
+def _sensor_renewal() -> Scenario:
+    """Duty-cycled sensor fleet: Pareto-tail latency plus renewal-process
+    on/off churn."""
+    return Scenario(
+        "sensor_renewal",
+        LatencyTable.from_pareto(scale=0.1, alpha=1.2, n_bins=12,
+                                 q_hi=0.99),
+        RenewalChurn(on_rate=1.0 / 16.0, off_rate=1.0 / 48.0),
+        SpeedModel(kind="zipf", alpha=0.5))
+
+
+def scenario_from_trace(path: str, *, name: Optional[str] = None,
+                        availability=None,
+                        speed_model: Optional[SpeedModel] = None,
+                        n_bins: int = 16,
+                        per_client: bool = False) -> Scenario:
+    """A scenario whose latency table is fit to a measured trace
+    (``LatencyTable.from_trace``); with ``per_client=True`` one table per
+    trace client, engine client ``c`` using table ``c % T``."""
+    avail = availability if availability is not None else AlwaysOn()
+    if per_client:
+        tables = LatencyTable.per_client_from_trace(path, n_bins=n_bins)
+        return Scenario(name or f"trace:{path}", tables, avail, speed_model,
+                        assignment=TableAssignment("cycle"))
+    return Scenario(name or f"trace:{path}",
+                    LatencyTable.from_trace(path, n_bins=n_bins), avail,
+                    speed_model)
 
 
 def legacy_latency_scenario(latency) -> Scenario:

@@ -14,7 +14,18 @@ those are held to SUM_RTOL * sum|terms| (the error of a reordered f32
 sum is a small multiple of eps * sum|terms|).
 On CPU tensors the port's wrappers run exactly these plain versions and
 count no kernel launch.
+
+The in-kernel-noise version (``cohort_clip_noise_prng``) has no JAX
+counterpart off the TPU (the reference's kernel reseeds the TPU's own
+PRNG per tile): its plain version is held to its own contract — the
+counter stream is jax's threefry on the flat index, the normals pass the
+reference's distribution test (tests/test_tick_fused.py), keys of
+adjacent ticks are uncorrelated, and everything but the noise is the
+operand version's.
 """
+import math
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,9 +35,14 @@ from repro.kernels.cohort_dp.kernel import cohort_clip_noise_kernel
 from repro.kernels.cohort_dp.ref import cohort_clip_noise_ref as j_clip_ref
 from repro.kernels.tick_fused import ops as jops
 from repro.kernels.tick_fused import ref as jref
+from repro_torch import prng
+from repro_torch.analysis.salts import NOISE_SALT
 from repro_torch.kernels import LAUNCHES, reset
 from repro_torch.kernels.cohort_dp import (cohort_clip_noise,
-                                           cohort_clip_noise_ref)
+                                           cohort_clip_noise_prng,
+                                           cohort_clip_noise_prng_ref,
+                                           cohort_clip_noise_ref,
+                                           counter_normals)
 from repro_torch.kernels.tick_fused import (bucket_apply, bucket_apply_ref,
                                             tick_deliver, tick_deliver_ref,
                                             tick_scatter, tick_scatter_ref)
@@ -194,6 +210,12 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     o1, _ = cohort_clip_noise(U, w, eta, done, clip=1.0, noise_scale=0.5)
     o2, _ = cohort_clip_noise_ref(U, w, eta, done, clip=1.0, noise_scale=0.5)
     assert torch.equal(o1, o2)
+    key = prng.PRNGKey(3)
+    o1, _ = cohort_clip_noise_prng(U, key, eta, done, clip=1.0,
+                                   noise_scale=0.5)
+    o2, _ = cohort_clip_noise_prng_ref(U, key, eta, done, clip=1.0,
+                                       noise_scale=0.5)
+    assert torch.equal(o1, o2)
     assert all(n == 0 for n in LAUNCHES.values())
 
 
@@ -201,3 +223,84 @@ def test_dispatch_refuses_other_devices():
     assert on_cuda(torch.zeros(1)) is False
     with pytest.raises(ValueError):
         on_cuda(torch.zeros(1, device="meta"))
+
+
+# --- the in-kernel noise's plain version ------------------------------------
+
+def _tick_key(t, seed=2):
+    return prng.fold_in(prng.PRNGKey(seed ^ NOISE_SALT), t)
+
+
+def test_counter_stream_is_threefry_on_the_flat_index():
+    C, D = 7, 33
+    key = _tick_key(5)
+    k0, k1 = key.tolist()
+    b1, b2 = prng.counter_words(key, C * D)
+    idx = torch.arange(C * D, dtype=torch.int64)
+    x0, x1 = prng.threefry2x32(k0, k1, idx >> 32, idx & prng.MASK32)
+    assert torch.equal(b1, x0) and torch.equal(b2, x1)
+    # element by element with Python ints (no tensor broadcasting)
+    for i in (0, 1, D, C * D - 1):
+        assert prng.threefry2x32(k0, k1, 0, i) == (int(b1[i]), int(b2[i]))
+    # x0 ^ x1 is jax's own bits for the same key and shape
+    want = np.asarray(jax.random.bits(
+        jnp.asarray(np.asarray(key.numpy(), np.uint32)), (C * D,)))
+    assert np.array_equal(want.astype(np.int64), (b1 ^ b2).numpy())
+    # Box-Muller on the top 24 bits of each word, in f32
+    n = counter_normals(key, C, D).numpy().ravel()
+    u1 = ((b1.numpy() >> 8).astype(np.float32) * np.float32(2.0 ** -24)
+          + np.float32(2.0 ** -25))
+    u2 = (b2.numpy() >> 8).astype(np.float32) * np.float32(2.0 ** -24)
+    ref = (np.sqrt(np.float32(-2.0) * np.log(u1))
+           * np.cos(np.float32(2.0 * np.pi) * u2))
+    np.testing.assert_allclose(n, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("clip", [1.0, 0.0])
+def test_prng_plain_version_without_noise_is_the_operand_one(clip):
+    rng = np.random.default_rng(6)
+    C, D = 13, 29
+    u = (0.2 * rng.normal(size=(C, D))).astype(np.float32)
+    mask = rng.random(C) < 0.5
+    wts = (0.1 * rng.random(C)).astype(np.float32) * mask
+    got = cohort_clip_noise_prng_ref(_t(u), _tick_key(3), _t(wts),
+                                     _t(mask), clip=clip, noise_scale=0.0)
+    want = cohort_clip_noise_ref(_t(u), None, _t(wts), _t(mask), clip=clip,
+                                 noise_scale=0.0)
+    for a, b in zip(got, want):
+        _assert_bitwise(a.numpy(), b.numpy())
+    out, _ = cohort_clip_noise_prng_ref(_t(u), _tick_key(3), _t(wts),
+                                        _t(mask), clip=clip,
+                                        noise_scale=0.8)
+    # pass-through rows: u * 1 + (0.8 * 0) * n is u, bit for bit
+    _assert_bitwise(out.numpy()[~mask], u[~mask])
+
+
+def test_prng_normals_pass_the_reference_distribution_test():
+    """tests/test_tick_fused.py::test_in_kernel_prng_noise_chi_square,
+    on the plain version (the same C, D and statistic)."""
+    C, D = 64, 512
+    out, _ = cohort_clip_noise_prng(torch.zeros(C, D), _tick_key(0, seed=5),
+                                    torch.ones(C), torch.ones(C), clip=0.0,
+                                    noise_scale=1.0)
+    s = out.numpy().ravel()
+    assert abs(s.mean()) < 0.02 and abs(s.std() - 1.0) < 0.02
+    edges = np.array([-2.0, -1.0, -0.5, 0.0, 0.5, 1.0, 2.0])
+    cdf = np.vectorize(
+        lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0))))
+    probs = np.diff(np.concatenate([[0.0], cdf(edges), [1.0]]))
+    counts, _ = np.histogram(s, bins=np.concatenate(
+        [[-np.inf], edges, [np.inf]]))
+    expected = probs * s.size
+    chi2 = float(((counts - expected) ** 2 / expected).sum())
+    df = len(probs) - 1
+    assert chi2 < df + 5.0 * math.sqrt(2.0 * df), (chi2, counts)
+
+
+def test_prng_normals_of_adjacent_ticks_are_uncorrelated():
+    C, D = 64, 512
+    a = counter_normals(_tick_key(10), C, D).numpy().ravel()
+    b = counter_normals(_tick_key(11), C, D).numpy().ravel()
+    assert abs(float(np.corrcoef(a, b)[0, 1])) < 0.02
+    # neighbouring elements of one draw too
+    assert abs(float(np.corrcoef(a[:-1], a[1:])[0, 1])) < 0.02

@@ -117,3 +117,29 @@ def test_cohort_sample_idx_matches_reference_derivation():
     want = np.asarray(jax.vmap(one)(rk, jnp.asarray(h)))
     got = tt.sample_idx(torch.as_tensor(i), torch.as_tensor(h), block)
     assert (want == got.numpy()).all()
+
+
+@pytest.mark.parametrize("shape", [(), (2,), (25,)])
+def test_batched_key_uniforms_bitwise(shape):
+    """``keys_uniform`` on an [N, 2] batch of keys: the reference's
+    ``jax.vmap(lambda k: jax.random.uniform(k, shape))(keys)`` (the
+    latency-table draws, the renewal holdings, the table ids)."""
+    base = jax.random.PRNGKey(0x1A7E9C)
+    keys = jax.vmap(lambda c: jax.random.fold_in(base, c))(jnp.arange(300))
+    want = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, shape))(keys))
+    tkeys = prng.fold_in(prng.PRNGKey(0x1A7E9C)[None, :], torch.arange(300))
+    got = prng.keys_uniform(tkeys, shape).numpy()
+    assert got.shape == want.shape
+    assert (_ulps(want, got) == 0).all()
+    bits = np.asarray(jax.vmap(lambda k: jax.random.bits(k, shape))(keys))
+    assert (bits.astype(np.int64) == prng.keys_bits(tkeys, shape).numpy()
+            ).all()
+
+
+@pytest.mark.parametrize("n", [1, 5, 16, 17, 24, 40, 256])
+def test_cumsum_xla_matches_jnp_cumsum(n):
+    rng = np.random.default_rng(n)
+    x = (rng.exponential(size=(37, n)) * 30.0).astype(np.float32)
+    want = np.asarray(jax.jit(lambda a: jnp.cumsum(a, axis=1))(x))
+    got = prng.cumsum_xla(torch.as_tensor(x)).numpy()
+    assert (_ulps(want, got) == 0).all()
