@@ -25,7 +25,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    ticks (updates spill into the overflow bucket), in-kernel noise,
    each repeated with operand noise (identical integer state);
 5. a small stratified + overflow + DP case on the card against the
-   port's plain CPU run, with both noise sources.
+   port's plain CPU run, with both noise sources;
+6. the model-scale kernels (``clip_accumulate``, ``flash_attention``,
+   ``ssd_scan``) against their plain versions at the shapes of the three
+   paths below and at ragged edge shapes, f32 and bf16;
+7. ``dp_round``: the example-level DP-SGD round (``dp_sgd_round``) on
+   the main run's data (D = 785) with its DP knobs, whole and in 10
+   microbatches, card against CPU;
+8. ``attention_layer``: one gemma2-2b attention layer at full width
+   (local and global, f32 and bf16, S = 8192), through the kernel
+   against the reference's dense core on the card;
+9. ``ssm_layer``: one mamba2-780m mixer at full width (B = 4, S =
+   2048), through the kernel against the plain chunked SSD on the card,
+   with and without the final state.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -48,6 +60,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # rate, non-tensor, from the Hopper architecture white paper)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 INT32_OPS = 33.5e12
 # int32 operations of one element of the in-kernel noise: threefry2x32
 # (2 key adds, 20 rounds of add + rotate (shift, shift, or) + xor, 5 key
@@ -80,6 +93,19 @@ SCENARIOS = (
 FEDSGD_C = 4096
 FEDSGD_OPS = dict(ticks=16, block_ticks=8, deliver_rows=28672)
 FEDSGD_ITERS = (8, 8)
+
+# the model-scale paths: the DP round's microbatch (10 slices of the
+# 60000 examples); gemma2-2b's attention layer at its context length;
+# mamba2-780m's mixer at Mamba-2's training context, B = 4 giving 192
+# (batch, head) blocks.  Depth is cut to one layer; weights come from the
+# port's initializers on a seeded key
+DP_MICROBATCH = 6000
+ATTN = dict(B=1, S=8192)
+SSM = dict(B=4, S=2048)
+# the reference suite's tolerances (tests/test_kernels.py): attention
+# abs + rel, SSD max error over max |ref|
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SSD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 # tolerances where a kernel reorders a float sum: the error of a
 # reordered f32 sum of n terms is bounded by a small multiple of
@@ -736,6 +762,438 @@ def phase_small_scenario(dev):
               f"model_max_abs={float(np.abs(mg - mc).max())} wall_s={wall}")
 
 
+def timed_calls(fn, name: str, per_call: int, what: str, n: int = 3):
+    """Call ``fn`` ``n`` times, each ended by a device sync: returns (the
+    walls in s, the last result).  Fails unless each call launched kernel
+    ``name`` exactly ``per_call`` times.  The first call carries the
+    one-time set-up (library handles, the kernel's first launch)."""
+    import torch
+    from repro_torch.kernels import launches
+    walls = []
+    for _ in range(n):
+        before = launches.LAUNCHES[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = launches.LAUNCHES[name] - before
+        if got != per_call:
+            fail(f"{what}: {got} {name} launches in one call, want "
+                 f"{per_call}")
+    return walls, out
+
+
+def layer_cfg(name: str):
+    """A one-layer copy of a supported model config (depth cut only)."""
+    import dataclasses
+    import importlib
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    return dataclasses.replace(mod.config(), n_layers=1)
+
+
+def attn_pairs(S: int, window) -> int:
+    """(query, key) pairs the causal mask (and window) keeps."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def attn_flops(B: int, S: int, H: int, hd: int, window) -> float:
+    """2 flops per multiply-add of QK^T and PV over the kept pairs."""
+    return 4.0 * B * H * hd * attn_pairs(S, window)
+
+
+def ssd_flops(b: int, s: int, h: int, p: int, n: int, Q: int) -> float:
+    """Per chunk of Q steps: C B^T and the diagonal block product over
+    the Q (Q + 1) / 2 causal pairs, the off-diagonal term C H and the
+    state update B^T x (2 flops per multiply-add)."""
+    pairs = Q * (Q + 1) // 2
+    return b * h * (-(-s // Q)) * (2.0 * pairs * (n + p) + 4.0 * Q * n * p)
+
+
+def rel_err(out, ref) -> float:
+    """max |out - ref| / max |ref| (the reference suite's SSD rule)."""
+    d = (out.float() - ref.float()).abs().max()
+    return float(d / (ref.float().abs().max() + 1e-9))
+
+
+def check_attention(q, k, v, what, **kw):
+    """attend (the kernel on the card) against attention_ref, twice for
+    identical bits; returns the max abs error."""
+    from repro_torch.kernels.flash_attention import attend, attention_ref
+    o1 = attend(q, k, v, **kw)
+    o2 = attend(q, k, v, **kw)
+    p = attention_ref(q, k, v, **kw)
+    if not bits_equal(o1.float(), o2.float()):
+        fail(f"flash_attention ({what}): two launches differ")
+    tol = ATTN_TOL[str(q.dtype).split(".")[-1]]
+    diff = (o1.float() - p.float()).abs()
+    if not bool((diff <= tol + tol * p.float().abs()).all()):
+        fail(f"flash_attention ({what}) off by {float(diff.max())} "
+             f"(> {tol} abs + rel)")
+    return float(diff.max())
+
+
+def check_ssd(x, dt, A, B, C, chunk, what, h0=None):
+    """ssd_scan (the kernel on the card) against ssd_chunked: y and the
+    final state within SSD_TOL of max |ref|; returns (y err, state err)."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    y1, f1 = ssd_scan(x, dt, A, B, C, chunk, h0)
+    y2, f2 = ssd_scan(x, dt, A, B, C, chunk, h0)
+    yr, fr = ssd_chunked(x, dt, A, B, C, chunk, h0)
+    if not (bits_equal(y1.float(), y2.float()) and bits_equal(f1, f2)):
+        fail(f"ssd_scan ({what}): two launches differ")
+    tol = SSD_TOL[str(x.dtype).split(".")[-1]]
+    ey, ef = rel_err(y1, yr), rel_err(f1, fr)
+    if not (ey < tol and ef < tol):
+        fail(f"ssd_scan ({what}): y off by {ey}, final state by {ef} of "
+             f"max |ref| (limit {tol})")
+    return ey, ef
+
+
+def phase_model_kernels(dev, G):
+    """Phase 6: the model-scale kernels against their plain versions at
+    the paths' shapes (``G``: the DP round's per-example gradients) and
+    at ragged edge shapes; returns their JSON entries."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import fl_config_fig1b
+    from repro_torch.kernels.dp_clip import (clip_accumulate,
+                                             clip_accumulate_ref)
+    from repro_torch.kernels.flash_attention import attend, attention_ref
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=dev)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = []
+
+    # -- clip_accumulate ---------------------------------------------------
+    clip = fl_config_fig1b().dp.clip_norm
+
+    def check_clip(Gm, what):
+        k1 = clip_accumulate(Gm, clip=clip)
+        k2 = clip_accumulate(Gm, clip=clip)
+        p = clip_accumulate_ref(Gm, clip)
+        if not bits_equal(k1, k2):
+            fail(f"clip_accumulate ({what}): two launches differ")
+        tol = SUM_RTOL * clip_accumulate_ref(Gm.abs(), clip)  # sum|terms|
+        diff = (k1 - p).abs()
+        if not bool((diff <= tol + 1e-30).all()):
+            fail(f"clip_accumulate ({what}) off by {float(diff.max())} "
+                 f"(> {SUM_RTOL} * sum|terms|)")
+        return float(diff.max())
+
+    N, D = G.shape
+    err = check_clip(G, f"N={N} D={D}")
+    edges = []
+    for (n, d) in ((1, 1), (37, 13), (4, 300), (130, 785)):
+        for dt in (f32, bf16):
+            edges.append(check_clip((3.0 * randn(n, d)).to(dt),
+                                    f"N={n} D={d} {dt}"))
+    ms = median_ms(lambda: clip_accumulate(G, clip=clip))
+    pms = median_ms(lambda: clip_accumulate_ref(G, clip))
+    bms, by = bound(4.0 * (N * D + D), 4.0 * N * D)
+    print(f"phase model_kernels: clip_accumulate N={N} D={D} ms={ms} "
+          f"plain_ms={pms} bound_ms={bms} ({by}) max_abs_err={err} "
+          f"edges_max_abs_err={max(edges)}")
+    out.append(dict(name="clip_accumulate", route="cuda",
+                    source="src/repro_torch/csrc/dp_clip.cu",
+                    replaces="src/repro/kernels/dp_clip/kernel.py:47",
+                    max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                    bound_by=by, library_ms=None))
+
+    # -- flash_attention at gemma2-2b's layer ------------------------------
+    cfg = layer_cfg("gemma2_2b")
+    B, S = ATTN["B"], ATTN["S"]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cap, W = cfg.attn_softcap, cfg.sliding_window
+    entry = None
+    for dt in (f32, bf16):
+        q, k, v = (randn(B, S, h, hd).to(dt) for h in (H, KV, KV))
+        for window in (None, W):
+            kw = dict(window=window, softcap=cap)
+            e = check_attention(q, k, v, f"S={S} window={window} {dt}", **kw)
+            ms = median_ms(lambda: attend(q, k, v, **kw))
+            fl = attn_flops(B, S, H, hd, window)
+            nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * q.element_size()
+            bms, by = bound(nbytes, fl)
+            tc_ms = 1e3 * fl / BF16_TC_FLOPS
+            print(f"phase model_kernels: flash_attention {dt} B={B} S={S} "
+                  f"H={H} KV={KV} hd={hd} softcap={cap} window={window} "
+                  f"ms={ms} flops={fl} bound_f32_ms={bms} ({by}) "
+                  f"bound_bf16_tensor_core_ms={tc_ms} "
+                  f"bytes_ms={1e3 * nbytes / HBM_BYTES_PER_S} "
+                  f"max_abs_err={e}")
+            if dt == f32 and window is None:
+                pms = median_ms(lambda: attention_ref(q, k, v, **kw),
+                                n=3, reps=3)
+                entry = dict(name="flash_attention", route="cuda",
+                             source="src/repro_torch/csrc/flash_attention.cu",
+                             replaces="src/repro/kernels/flash_attention/"
+                                      "kernel.py:92",
+                             max_abs_err=e, ms=ms, plain_ms=pms,
+                             bound_ms=bms, bound_by=by)
+        # no single PyTorch call has the softcap: time the library call
+        # and the kernel with the softcap off (global layer, causal, GQA)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True).transpose(1, 2)
+        nocap = attend(q, k, v)
+        e_lib = float((nocap.float() - lib.float()).abs().max())
+        tol = ATTN_TOL[str(dt).split(".")[-1]]
+        if not bool(((nocap.float() - lib.float()).abs()
+                     <= tol + tol * lib.float().abs()).all()):
+            fail(f"flash_attention (softcap off, {dt}) off the library "
+                 f"call by {e_lib}")
+        ms_nocap = median_ms(lambda: attend(q, k, v))
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        print(f"phase model_kernels: flash_attention {dt} softcap off "
+              f"global: kernel_ms={ms_nocap} "
+              f"scaled_dot_product_attention_ms={lib_ms} "
+              f"max_abs_diff={e_lib}")
+        if dt == f32:
+            entry["library_ms"] = lib_ms
+        del q, k, v, qt, kt, vt, lib, nocap
+    edges = [
+        check_attention(*(randn(2, 200, h, 64) for h in (4, 2, 2)),
+                        "non-causal S=200", causal=False),
+        check_attention(*(randn(2, 200, h, 64).to(bf16) for h in (4, 2, 2)),
+                        "non-causal S=200 bf16", causal=False),
+        check_attention(*(randn(1, 130, h, 128) for h in (4, 1, 1)),
+                        "MQA S=130 window 64 softcap 30", window=64,
+                        softcap=30.0),
+        check_attention(*(randn(1, 77, 2, 32).to(bf16) for _ in range(3)),
+                        "S=77 hd=32 bf16 softcap 50", softcap=50.0),
+        check_attention(*(randn(2, 256, 8, 256) for _ in range(3)),
+                        "MHA S=256 hd=256 window 100", window=100),
+    ]
+    print(f"phase model_kernels: flash_attention edges max_abs_err="
+          f"{max(edges)}")
+    out.append(entry)
+
+    # -- ssd_scan at mamba2-780m's mixer -----------------------------------
+    cfg = layer_cfg("mamba2_780m")
+    b, s = SSM["B"], SSM["S"]
+    h, p, n, Q = (cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                  cfg.ssm_chunk)
+
+    def ssd_inputs(b, s, h, p, n, dt):
+        x = randn(b, s, h, p).to(dt)
+        dts = F.softplus(randn(b, s, h))
+        A = -torch.exp(0.1 * randn(h))
+        return x, dts, A, randn(b, s, n).to(dt), randn(b, s, n).to(dt)
+
+    for dt in (f32, bf16):
+        args = ssd_inputs(b, s, h, p, n, dt)
+        ey, ef = check_ssd(*args, Q, f"b={b} s={s} {dt}")
+        ms = median_ms(lambda: ssd_scan(*args, Q))
+        fl = ssd_flops(b, s, h, p, n, Q)
+        esz = args[0].element_size()
+        # read x, dt, A, B, C once; write y and the final state once
+        nbytes = (2 * b * s * h * p * esz + 4 * b * s * h + 4 * h
+                  + 2 * b * s * n * esz + 4 * b * h * n * p)
+        bms, by = bound(nbytes, fl)
+        print(f"phase model_kernels: ssd_scan {dt} b={b} s={s} h={h} p={p} "
+              f"n={n} chunk={Q} ms={ms} flops={fl} bound_ms={bms} ({by}) "
+              f"bytes_ms={1e3 * nbytes / HBM_BYTES_PER_S} y_rel_err={ey} "
+              f"state_rel_err={ef}")
+        if dt == f32:
+            pms = median_ms(lambda: ssd_chunked(*args, Q), n=3, reps=3)
+            y1, f1 = ssd_scan(*args, Q)
+            yr, fr = ssd_chunked(*args, Q)
+            err = max(float((y1 - yr).abs().max()),
+                      float((f1 - fr).abs().max()))
+            out.append(dict(name="ssd_scan", route="cuda",
+                            source="src/repro_torch/csrc/ssd_scan.cu",
+                            replaces="src/repro/kernels/ssd_scan/kernel.py:68",
+                            max_abs_err=err, ms=ms, plain_ms=pms,
+                            bound_ms=bms, bound_by=by, library_ms=None))
+        del args
+    edges = [
+        check_ssd(*ssd_inputs(1, 100, 2, 32, 16, f32), 64, "s=100 chunk 64"),
+        check_ssd(*ssd_inputs(2, 192, 3, 32, 64, bf16), 64, "bf16 s=192"),
+        check_ssd(*ssd_inputs(2, 130, 3, 64, 128, f32), 128,
+                  "s=130 initial state", h0=randn(2, 3, 128, 64)),
+        check_ssd(*ssd_inputs(1, 50, 2, 64, 12, f32), 128, "s=50 < chunk"),
+    ]
+    print(f"phase model_kernels: ssd_scan edges (y, state) rel errors "
+          f"{edges}")
+    return out
+
+
+def phase_dp_round(dev, X, y):
+    """Phase 7: the example-level DP-SGD round on the main run's data,
+    whole and in microbatches, on the card against the same call on the
+    CPU (same key, same noise); returns the per-example gradients and
+    the path's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import fl_config_fig1b
+    from repro_torch.dp import dp_sgd_round
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.dp_clip import clip_accumulate_ref
+    from repro_torch.models import logreg
+
+    dp = fl_config_fig1b().dp
+    clip, sigma = dp.clip_norm, dp.sigma
+    n, d = X.shape
+    cpu = torch.device("cpu")
+    key = prng.PRNGKey(MAIN["seed"])
+
+    def loss_fn(p, ex):
+        return logreg.per_example_loss(p, ex[0], ex[1])
+
+    def inputs(device):
+        params = logreg.init_params(d, prng.PRNGKey(0), device=device)
+        return params, (torch.as_tensor(X, device=device),
+                        torch.as_tensor(y, device=device))
+
+    params, batch = inputs(dev)
+    params_c, batch_c = inputs(cpu)
+    # the per-example gradients (b first, then w: jax's leaf order), for
+    # the tolerance here and the kernel check at this shape
+    gw, gb = logreg.per_example_grad(params["w"][None], params["b"][None],
+                                     batch[0], batch[1])
+    G = torch.cat([gb[:, None], gw], dim=1).contiguous()
+    terms = clip_accumulate_ref(G.abs(), clip).cpu()      # sum|terms| per d
+    keys = prng.split(key, 2)
+    noise = torch.cat([prng.normal(keys[0], (1,)),
+                       prng.normal(keys[1], (d,))])
+    # card vs CPU: the clipped sums reorder their adds (SUM_RTOL), the
+    # normals differ by a few ulp of the libraries' log1p (8 ulp allowed)
+    tol = SUM_RTOL * terms + 8 * 2.0 ** -23 * clip * sigma * noise.abs()
+
+    launches.reset()
+    for mb, want in ((0, 1), (DP_MICROBATCH, n // DP_MICROBATCH)):
+        walls, (U, loss) = timed_calls(
+            lambda: dp_sgd_round(loss_fn, params, batch, clip_norm=clip,
+                                 sigma=sigma, rng=key, microbatch=mb),
+            "clip_accumulate", want, f"dp_round (microbatch={mb})")
+        Uc, loss_c = dp_sgd_round(loss_fn, params_c, batch_c, clip_norm=clip,
+                                  sigma=sigma, rng=key, microbatch=mb)
+        u = torch.cat([U["b"].reshape(1), U["w"]]).cpu()
+        uc = torch.cat([Uc["b"].reshape(1), Uc["w"]])
+        if tuple(U["w"].shape) != (d,) or not bool(torch.isfinite(u).all()):
+            fail(f"dp_round (microbatch={mb}): U has the wrong shape or is "
+                 f"not finite")
+        diff = (u - uc).abs()
+        if not bool((diff <= tol).all()):
+            fail(f"dp_round (microbatch={mb}): U off the CPU's by "
+                 f"{float(diff.max())}")
+        lg, lc = float(loss), float(loss_c)
+        if not np.isclose(lg, lc, rtol=1e-5, atol=0.0):
+            fail(f"dp_round (microbatch={mb}): mean loss {lg} vs CPU {lc}")
+        print(f"phase dp_round (microbatch={mb}): N={n} D={d + 1} "
+              f"clip={clip} sigma={sigma} launches_per_call={want} "
+              f"walls_s={walls} "
+              f"mean_loss card={lg} cpu={lc} U_max_abs_diff="
+              f"{float(diff.max())} |U|_2={float(u.norm())}")
+    return G, dict(launches.LAUNCHES)
+
+
+def phase_attention_layer(dev):
+    """Phase 8: one gemma2-2b attention layer at full width, local and
+    global, f32 and bf16: through the kernel against the same layer
+    through the reference's dense core, on the card."""
+    import torch
+    from repro_torch import convert, prng
+    from repro_torch.kernels import launches
+    from repro_torch.models.attention import (attend_full, dense_attention,
+                                              init_attention)
+
+    cfg = layer_cfg("gemma2_2b")
+    B, S = ATTN["B"], ATTN["S"]
+    g = torch.Generator(device=dev).manual_seed(2)
+    pos = torch.arange(S, device=dev)[None].expand(B, S)
+    launches.reset()
+    for dt in (torch.float32, torch.bfloat16):
+        lp = convert.layer(init_attention(cfg, prng.PRNGKey(3), dt,
+                                          device=dev), 0)
+        x = torch.randn((B, S, cfg.d_model), generator=g, device=dev).to(dt)
+        # layer 0 of gemma2 is local (sliding window), layer 1 global
+        for layer_idx in (0, 1):
+            window = cfg.sliding_window if cfg.layer_is_local(layer_idx) \
+                else None
+            what = f"attention_layer ({dt}, window={window})"
+            walls, out = timed_calls(
+                lambda: attend_full(cfg, lp, x, pos, window),
+                "flash_attention", 1, what)
+            pwalls, plain = timed_calls(
+                lambda: attend_full(cfg, lp, x, pos, window,
+                                    core=dense_attention),
+                "flash_attention", 0, what + " dense core")
+            if tuple(out.shape) != (B, S, cfg.d_model) or not bool(
+                    torch.isfinite(out.float()).all()):
+                fail(f"attention_layer ({dt}, window={window}): output "
+                     f"shape {tuple(out.shape)} or not finite")
+            tol = ATTN_TOL[str(dt).split(".")[-1]]
+            diff = (out.float() - plain.float()).abs()
+            if not bool((diff <= tol + tol * plain.float().abs()).all()):
+                fail(f"attention_layer ({dt}, window={window}): off the "
+                     f"dense core by {float(diff.max())}")
+            print(f"phase attention_layer ({dt}, window={window}): B={B} "
+                  f"S={S} d_model={cfg.d_model} H={cfg.n_heads} "
+                  f"KV={cfg.n_kv_heads} hd={cfg.head_dim} "
+                  f"softcap={cfg.attn_softcap} walls_s={walls} "
+                  f"dense_core_walls_s={pwalls} max_abs_diff="
+                  f"{float(diff.max())} max_abs_out="
+                  f"{float(plain.float().abs().max())}")
+        del lp, x, out, plain
+    return dict(launches.LAUNCHES)
+
+
+def phase_ssm_layer(dev):
+    """Phase 9: one mamba2-780m mixer at full width through the kernel
+    (``ssd_fn``), with and without the final state, against the same
+    mixer through the plain chunked SSD, on the card."""
+    import torch
+    from repro_torch import convert, prng
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.ssm import apply_ssm, init_ssm, ssd_chunked
+
+    cfg = layer_cfg("mamba2_780m")
+    B, S = SSM["B"], SSM["S"]
+    g = torch.Generator(device=dev).manual_seed(4)
+    lp = convert.layer(init_ssm(cfg, prng.PRNGKey(5), torch.float32,
+                                device=dev), 0)
+    x = torch.randn((B, S, cfg.d_model), generator=g, device=dev)
+    tol = SSD_TOL["float32"]
+    launches.reset()
+    for rs in (False, True):
+        what = f"ssm_layer (return_state={rs})"
+        walls, out = timed_calls(
+            lambda: apply_ssm(cfg, lp, x, return_state=rs, ssd_fn=ssd_scan),
+            "ssd_scan", 1, what)
+        pwalls, plain = timed_calls(
+            lambda: apply_ssm(cfg, lp, x, return_state=rs,
+                              ssd_fn=ssd_chunked),
+            "ssd_scan", 0, what + " plain SSD")
+        outs, plains = (out, plain) if rs else ((out,), (plain,))
+        if tuple(outs[0].shape) != (B, S, cfg.d_model) or not all(
+                bool(torch.isfinite(t).all()) for t in outs):
+            fail(f"ssm_layer (return_state={rs}): wrong shape or not "
+                 f"finite")
+        errs = [rel_err(a, b) for a, b in zip(outs, plains)]
+        if not all(e < tol for e in errs):
+            fail(f"ssm_layer (return_state={rs}): off the plain SSD by "
+                 f"{errs} of max |ref| (limit {tol})")
+        print(f"phase ssm_layer (return_state={rs}): B={B} S={S} "
+              f"d_model={cfg.d_model} d_inner={cfg.ssm_d_inner} "
+              f"H={cfg.ssm_n_heads} P={cfg.ssm_head_dim} N={cfg.ssm_state} "
+              f"chunk={cfg.ssm_chunk} walls_s={walls} "
+              f"plain_ssd_walls_s={pwalls} "
+              f"rel_errs(out, final, conv)={errs}")
+    return dict(launches.LAUNCHES)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -781,12 +1239,27 @@ def main() -> int:
     phase_small_scenario(dev)
     print(f"phase small_scenario_agreement: wall_s="
           f"{time.perf_counter() - t0}")
-    # launches: the main run's for the main path's kernels, the scenario
-    # runs' for the in-kernel noise (the path that runs it)
+    t0 = time.perf_counter()
+    G, dp_counts = phase_dp_round(dev, X, y)
+    print(f"phase dp_round: wall_s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    attn_counts = phase_attention_layer(dev)
+    print(f"phase attention_layer: wall_s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    ssm_counts = phase_ssm_layer(dev)
+    print(f"phase ssm_layer: wall_s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    kernels += phase_model_kernels(dev, G)
+    print(f"phase model_kernels: wall_s={time.perf_counter() - t0}")
+    # launches: each kernel's count from the path that runs it: the main
+    # run for the four main-path kernels, the scenario runs (in-kernel
+    # noise) for the fifth, the DP round, the attention layer and the SSM
+    # layer for the model-scale three
+    path_counts = dict(cohort_clip_noise_prng=scn_counts,
+                       clip_accumulate=dp_counts,
+                       flash_attention=attn_counts, ssd_scan=ssm_counts)
     for k in kernels:
-        k["launches"] = (scn_counts[k["name"]]
-                         if k["name"] == "cohort_clip_noise_prng"
-                         else counts[k["name"]])
+        k["launches"] = path_counts.get(k["name"], counts)[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}

@@ -55,6 +55,7 @@ from repro_torch.cohort.state import (FRAC_BITS, DeviceCohortState,
                                       pad_sizes, speed_accrual)
 from repro_torch.core.strategies import get_strategy, ring_decay
 from repro_torch.core.tasks import validate_dp_knobs
+from repro_torch.devices import resolve_device
 from repro_torch.kernels.cohort_dp import (cohort_clip_noise,
                                            cohort_clip_noise_prng)
 from repro_torch.kernels.tick_fused import (bucket_apply, tick_deliver,
@@ -74,26 +75,6 @@ F32 = torch.float32
 # produces more trips the err latch and run() raises with the ring_cap
 # advice.
 FAR_UNROLL_CAP = 16
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card.  Without CUDA, only an explicit
-    ``device="cpu"`` runs (on the plain PyTorch versions of the kernels)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: the port runs on the card; pass "
-                "device='cpu' to run the plain PyTorch versions instead")
-        device = "cuda"
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device={device!r} but CUDA is unavailable")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 class TickPreds(NamedTuple):

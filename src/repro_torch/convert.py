@@ -18,9 +18,14 @@ _DTYPES = {np.dtype(np.float32): torch.float32,
 
 def _tensor(x, device) -> torch.Tensor:
     a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        # jax's bfloat16 (an ml_dtypes type, known here by its name): every
+        # value is exact in f32 and back in torch.bfloat16
+        return torch.tensor(a.astype(np.float32),
+                            device=device).to(torch.bfloat16)
     if a.dtype not in _DTYPES:
-        raise TypeError(f"unexpected dtype {a.dtype} (want float32 or "
-                        f"int32, as the reference keeps them)")
+        raise TypeError(f"unexpected dtype {a.dtype} (want float32, "
+                        f"bfloat16 or int32, as the reference keeps them)")
     return torch.tensor(a, dtype=_DTYPES[a.dtype], device=device)
 
 
@@ -29,6 +34,23 @@ def params_from_jax(params: Mapping[str, Any],
     """``{"w": [d], "b": []}`` numpy logreg params -> the port's."""
     return {"w": _tensor(params["w"], device), "b": _tensor(params["b"],
                                                             device)}
+
+
+def stacked_params_from_jax(params: Mapping[str, Any],
+                            device=None) -> Dict[str, torch.Tensor]:
+    """Numpy copies of a layer stack's params (``init_attention`` /
+    ``init_ssm``: every leaf stacked ``(L, ...)``) -> the port's."""
+    out = {k: _tensor(v, device) for k, v in params.items()}
+    depths = {t.shape[0] for t in out.values()}
+    if len(depths) != 1:
+        raise ValueError(f"leaves stack different depths {sorted(depths)}")
+    return out
+
+
+def layer(params: Mapping[str, torch.Tensor], i: int
+          ) -> Dict[str, torch.Tensor]:
+    """Layer ``i`` of stacked ``(L, ...)`` params."""
+    return {k: v[i] for k, v in params.items()}
 
 
 def state_from_jax(np_state, device=None) -> DeviceCohortState:

@@ -1,3 +1,3 @@
-from repro_torch.models import logreg
+from repro_torch.models import attention, common, logreg, ssm
 
-__all__ = ["logreg"]
+__all__ = ["attention", "common", "logreg", "ssm"]

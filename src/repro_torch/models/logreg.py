@@ -32,6 +32,22 @@ def _bce_with_logits(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             + torch.log1p(torch.exp(-torch.abs(z))))
 
 
+def per_example_loss(params, x, y, l2: float = 0.0):
+    """x: (d,), y: scalar in {0,1}.  The loss of one example, for
+    ``torch.func`` (``dp.mechanism.dp_sgd_round``); its autograd takes
+    jax's derivatives at ``z == 0``: ``torch.maximum`` splits the tie in
+    half as ``jnp.maximum`` does, and ``|z|`` is written as a select so
+    that it takes ``+g`` at 0 as jax's ``abs`` does."""
+    z = x @ params["w"] + params["b"]
+    az = torch.where(z >= 0.0, z, -z)
+    # numerically stable BCE-with-logits
+    loss = (torch.maximum(z, torch.zeros_like(z)) - z * y
+            + torch.log1p(torch.exp(-az)))
+    if l2 > 0.0:
+        loss = loss + 0.5 * l2 * torch.sum(torch.square(params["w"]))
+    return loss
+
+
 def per_example_grad(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
                      y: torch.Tensor, l2: float = 0.0
                      ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -79,6 +79,14 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` -> keys ``[num, 2]`` on the key's
+    device: under the partitionable layout key ``i`` is both words of
+    ``threefry2x32(key, (hi, lo))`` on the flat index ``i``."""
+    x0, x1 = counter_words(key, num, device=key.device)
+    return torch.stack([x0, x1], dim=-1)
+
+
 def _scalar_key(key: torch.Tensor) -> Tuple[int, int]:
     if tuple(key.shape) != (2,):
         raise ValueError(f"need one key of shape (2,), got {tuple(key.shape)}")

@@ -9,8 +9,10 @@ version's rounding, SUM_RTOL * sum|terms| where it reorders a sum over
 clients; ``bucket_apply`` also at FedAsync's ``A = R`` with decay
 weights != 1 and ``tick_scatter`` at its ``G = L * R``; the in-kernel
 noise's stream bit for bit and its rows within ROW_RTOL (CUDA's
-logf/cosf against PyTorch's log/cos); and the slice on the card against
-the same slice on the CPU.
+logf/cosf against PyTorch's log/cos); the slice on the card against
+the same slice on the CPU; and the model-scale kernels (DP clip,
+flash attention, SSD scan) against their plain versions at ragged
+shapes, f32 and bf16, within the reference suite's tolerances.
 """
 import numpy as np
 import pytest
@@ -87,7 +89,8 @@ def test_kernels_match_plain_versions(dev, C, D):
     torch.cuda.synchronize()
     assert LAUNCHES == {"bucket_apply": 2, "tick_deliver": 1,
                         "tick_scatter": 1, "cohort_clip_noise": 2,
-                        "cohort_clip_noise_prng": 0}
+                        "cohort_clip_noise_prng": 0, "clip_accumulate": 0,
+                        "flash_attention": 0, "ssd_scan": 0}
 
 
 @pytest.mark.parametrize("C,D", [(1, 1), (37, 13), (130, 785)])
@@ -196,3 +199,89 @@ def test_slice_on_the_card_matches_the_cpu(dev, scenario, strategy, dp_rng):
     assert out["cuda"][0] == out["cpu"][0]
     np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], rtol=1e-5,
                                atol=1e-7)
+
+
+# the reference suite's tolerances (tests/test_kernels.py)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("N,D", [(1, 1), (4, 300), (37, 13), (130, 785)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_clip_accumulate_matches_plain_version(dev, N, D, dtype):
+    from repro_torch.kernels import LAUNCHES, reset
+    from repro_torch.kernels.dp_clip import (clip_accumulate,
+                                             clip_accumulate_ref)
+    g = torch.Generator(device=dev).manual_seed(N * 1000 + D)
+    G = (3.0 * torch.randn((N, D), generator=g, device=dev)).to(dtype)
+    reset()
+    k = clip_accumulate(G, clip=0.5)
+    assert k.dtype == torch.float32 and tuple(k.shape) == (D,)
+    assert _bits_equal(k, clip_accumulate(G, clip=0.5))
+    p = clip_accumulate_ref(G, 0.5)
+    tol = SUM_RTOL * clip_accumulate_ref(G.abs(), 0.5)
+    assert bool(((k - p).abs() <= tol + 1e-30).all())
+    torch.cuda.synchronize()
+    assert LAUNCHES["clip_accumulate"] == 2
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,kw", [
+    (2, 256, 4, 2, 64, {}),
+    (1, 128, 2, 1, 128, {}),                                   # MQA
+    (2, 200, 4, 2, 64, {"causal": False}),                     # odd S
+    (1, 130, 4, 1, 128, {"window": 64, "softcap": 30.0}),
+    (1, 77, 2, 2, 32, {"softcap": 50.0}),
+    (2, 256, 8, 8, 256, {"window": 100}),
+    (1, 70, 2, 1, 100, {"causal": False, "window": 9}),        # odd hd
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_version(dev, B, S, H, KV, hd, kw,
+                                               dtype):
+    from repro_torch.kernels import LAUNCHES, reset
+    from repro_torch.kernels.flash_attention import attend, attention_ref
+    g = torch.Generator(device=dev).manual_seed(S * 7 + hd)
+    q, k, v = (torch.randn((B, S, h, hd), generator=g, device=dev)
+               .to(dtype) for h in (H, KV, KV))
+    reset()
+    o = attend(q, k, v, **kw)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert _bits_equal(o.float(), attend(q, k, v, **kw).float())
+    p = attention_ref(q, k, v, **kw).float()
+    tol = ATTN_TOL[dtype]
+    assert bool(((o.float() - p).abs() <= tol + tol * p.abs()).all())
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 2
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,init", [
+    (2, 256, 4, 32, 16, 64, False),
+    (1, 128, 2, 64, 32, 128, False),
+    (2, 192, 3, 32, 64, 64, False),
+    (1, 100, 2, 32, 16, 64, False),                            # odd s
+    (2, 130, 3, 64, 128, 128, True),                           # mamba2 n, p
+    (1, 50, 2, 64, 12, 128, False),                            # s < chunk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_matches_plain_version(dev, b, s, h, p, n, chunk, init,
+                                        dtype):
+    import torch.nn.functional as F
+    from repro_torch.kernels import LAUNCHES, reset
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    g = torch.Generator(device=dev).manual_seed(s * 3 + n)
+    rn = lambda *sh: torch.randn(sh, generator=g, device=dev)  # noqa: E731
+    x = rn(b, s, h, p).to(dtype)
+    dt = F.softplus(rn(b, s, h))
+    A = -torch.exp(0.1 * rn(h))
+    B, C = rn(b, s, n).to(dtype), rn(b, s, n).to(dtype)
+    h0 = rn(b, h, n, p) if init else None
+    reset()
+    y, fin = ssd_scan(x, dt, A, B, C, chunk, h0)
+    y2, fin2 = ssd_scan(x, dt, A, B, C, chunk, h0)
+    assert y.dtype == dtype and fin.dtype == torch.float32
+    assert _bits_equal(y.float(), y2.float()) and _bits_equal(fin, fin2)
+    yr, fr = ssd_chunked(x, dt, A, B, C, chunk, h0)
+    for got, want in ((y, yr), (fin, fr)):
+        err = (got.float() - want.float()).abs().max()
+        assert float(err / (want.float().abs().max() + 1e-9)) < SSD_TOL[dtype]
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == 2

@@ -84,3 +84,57 @@ def test_entry_point_raises_without_cuda(monkeypatch):
         rt.DeviceCohortSimulator(task, **kw, device="cuda")
     assert rt.DeviceCohortSimulator(task, **kw, device="cpu").device.type \
         == "cpu"
+
+
+def test_model_paths_run_without_loading_jax_or_the_reference():
+    """The DP round, the attention layer and the SSD mixer, each on its
+    plain CPU route, load neither jax nor the reference package."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        from repro_torch import prng
+        from repro_torch.configs import gemma2_2b, mamba2_780m, reduced
+        from repro_torch.convert import layer
+        from repro_torch.dp import dp_sgd_round
+        from repro_torch.models import attention, logreg, ssm
+        X = torch.randn(12, 5)
+        y = (torch.rand(12) < 0.5).float()
+        U, loss = dp_sgd_round(
+            lambda p, ex: logreg.per_example_loss(p, ex[0], ex[1]),
+            logreg.init_params(5, device="cpu"), (X, y), clip_norm=0.1,
+            sigma=1.0, rng=prng.PRNGKey(0), microbatch=4)
+        assert U["w"].shape == (5,) and torch.isfinite(loss)
+        cfg = reduced(gemma2_2b.config())
+        lp = layer(attention.init_attention(cfg, prng.PRNGKey(1),
+                                            torch.float32, device="cpu"), 0)
+        x = torch.randn(1, 9, cfg.d_model)
+        out = attention.attend_full(cfg, lp, x, torch.arange(9)[None], 4)
+        assert out.shape == x.shape
+        cfg = reduced(mamba2_780m.config())
+        lp = layer(ssm.init_ssm(cfg, prng.PRNGKey(2), torch.float32,
+                                device="cpu"), 0)
+        x = torch.randn(1, 9, cfg.d_model)
+        assert ssm.apply_ssm(cfg, lp, x).shape == x.shape
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_model_initializers_default_to_the_card(monkeypatch):
+    from repro_torch import prng
+    from repro_torch.configs import gemma2_2b, mamba2_780m, reduced
+    from repro_torch.models import attention, ssm
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        attention.init_attention(reduced(gemma2_2b.config()),
+                                 prng.PRNGKey(0), torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ssm.init_ssm(reduced(mamba2_780m.config()), prng.PRNGKey(0),
+                     torch.float32)

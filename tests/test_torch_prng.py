@@ -143,3 +143,27 @@ def test_cumsum_xla_matches_jnp_cumsum(n):
     want = np.asarray(jax.jit(lambda a: jnp.cumsum(a, axis=1))(x))
     got = prng.cumsum_xla(torch.as_tensor(x)).numpy()
     assert (_ulps(want, got) == 0).all()
+
+
+@pytest.mark.parametrize("seed,num", [(0, 2), (42, 4), (7, 1),
+                                      (2 ** 31 - 1, 9), (3, 300)])
+def test_split_bitwise(seed, num):
+    """``prng.split`` is ``jax.random.split`` under the live config
+    (partitionable: key i hashes the flat index i)."""
+    want = _np(jax.random.split(jax.random.PRNGKey(seed), num))
+    got = prng.split(prng.PRNGKey(seed), num).numpy()
+    assert got.shape == (num, 2)
+    assert (want == got).all()
+
+
+def test_split_chain_bitwise():
+    """Split keys of a folded key, split again, then drawn from: the
+    chain ``add_gaussian_noise`` runs on a round key."""
+    k = jax.random.fold_in(jax.random.PRNGKey(5), 11)
+    tk = prng.fold_in(prng.PRNGKey(5), 11)
+    ks, tks = jax.random.split(k, 3), prng.split(tk, 3)
+    for i in range(3):
+        sub, tsub = jax.random.split(ks[i]), prng.split(tks[i])
+        assert (_np(sub) == tsub.numpy()).all()
+        u = np.asarray(jax.random.uniform(sub[1], (17,)))
+        assert (_ulps(u, prng.uniform(tsub[1], (17,)).numpy()) == 0).all()
