@@ -28,7 +28,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    port's plain CPU run, with both noise sources;
 6. the model-scale kernels (``clip_accumulate``, ``flash_attention``,
    ``ssd_scan``) against their plain versions at the shapes of the three
-   paths below and at ragged edge shapes, f32 and bf16;
+   paths below and at ragged edge shapes, f32 and bf16; for the bf16
+   ``flash_attention`` (tensor cores) also its ptxas report, the count
+   of HGMMA instructions in the library (none fails), its edge shapes
+   and its time against the tensor cores' bound;
 7. ``dp_round``: the example-level DP-SGD round (``dp_sgd_round``) on
    the main run's data (D = 785) with its DP knobs, whole and in 10
    microbatches, card against CPU;
@@ -106,6 +109,14 @@ SSM = dict(B=4, S=2048)
 # abs + rel, SSD max error over max |ref|
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SSD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+# bf16 attention, beside ATTN_TOL: ||out - ref||_2 / ||ref||_2 over the
+# whole output and over each output row.  With unit-variance inputs most
+# outputs are far below 1, where 2e-2 abs passes nearly anything; the
+# sound kernel's rounding (p and the output in bf16) reads about 2e-3
+# whole and 4e-3 per row, one 64-key tile dropped from one 128-row q tile
+# at S = 8192 about 0.1 per row (the planted fault below)
+ATTN_BF16_REL_L2 = 5e-3
+ATTN_BF16_ROW_REL_L2 = 2e-2
 
 # tolerances where a kernel reorders a float sum: the error of a
 # reordered f32 sum of n terms is bounded by a small multiple of
@@ -818,9 +829,31 @@ def rel_err(out, ref) -> float:
     return float(d / (ref.float().abs().max() + 1e-9))
 
 
+def rel_l2(out, ref):
+    """||out - ref||_2 / ||ref||_2 over the whole tensor, and its largest
+    value over the rows of the last axis."""
+    o = out.float().reshape(-1, out.shape[-1])
+    r = ref.float().reshape(-1, ref.shape[-1])
+    d = o - r
+    rows = d.norm(dim=1) / r.norm(dim=1).clamp_min(1e-30)
+    return float(d.norm() / r.norm()), float(rows.max())
+
+
+def check_rel_l2(out, ref, what):
+    """Fails unless bf16 ``out`` is within ATTN_BF16_REL_L2 of ``ref``
+    whole and ATTN_BF16_ROW_REL_L2 in every row; returns both readings."""
+    whole, row = rel_l2(out, ref)
+    if not (whole <= ATTN_BF16_REL_L2 and row <= ATTN_BF16_ROW_REL_L2):
+        fail(f"{what}: rel L2 {whole} whole (limit {ATTN_BF16_REL_L2}), "
+             f"{row} in the worst row (limit {ATTN_BF16_ROW_REL_L2})")
+    return whole, row
+
+
 def check_attention(q, k, v, what, **kw):
     """attend (the kernel on the card) against attention_ref, twice for
-    identical bits; returns the max abs error."""
+    identical bits, and in bf16 also by rel L2; returns the max abs
+    error and the two rel L2 readings (whole, worst row)."""
+    import torch
     from repro_torch.kernels.flash_attention import attend, attention_ref
     o1 = attend(q, k, v, **kw)
     o2 = attend(q, k, v, **kw)
@@ -832,7 +865,29 @@ def check_attention(q, k, v, what, **kw):
     if not bool((diff <= tol + tol * p.float().abs()).all()):
         fail(f"flash_attention ({what}) off by {float(diff.max())} "
              f"(> {tol} abs + rel)")
-    return float(diff.max())
+    if q.dtype == torch.bfloat16:
+        whole, row = check_rel_l2(o1, p, f"flash_attention ({what})")
+    else:
+        whole, row = rel_l2(o1, p)
+    return float(diff.max()), whole, row
+
+
+def planted_tile_drop(q, k, v, **kw):
+    """rel L2 readings of a planted fault against attention_ref: the
+    kernel's output with its last 128-row q tile attending without the
+    64 keys at S/2 (attention_ref of the sequence with those positions
+    cut out: exact for causal attention without a window)."""
+    import torch
+    from repro_torch.kernels.flash_attention import attend, attention_ref
+    S, a = q.shape[1], q.shape[1] // 2
+
+    def cut(t):
+        return torch.cat([t[:, :a], t[:, a + 64:]], dim=1)
+
+    faulty = attend(q, k, v, **kw)
+    faulty[:, S - 128:] = attention_ref(cut(q), cut(k), cut(v),
+                                        **kw)[:, S - 192:]
+    return rel_l2(faulty, attention_ref(q, k, v, **kw))
 
 
 def check_ssd(x, dt, A, B, C, chunk, what, h0=None):
@@ -852,10 +907,42 @@ def check_ssd(x, dt, A, B, C, chunk, what, h0=None):
     return ey, ef
 
 
-def phase_model_kernels(dev, G):
+def ptxas_report(log: str, kernel: str):
+    """The ptxas lines (registers, spills) of every instantiation of
+    ``kernel`` in an nvcc ``-Xptxas=-v`` log."""
+    import re
+    out, take = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            take = None
+            if kernel in line:
+                arg = re.search(kernel + r"ILi(\d+)E", line)
+                take = f"{kernel}<{arg.group(1) if arg else ''}>"
+        elif take and ("Used" in line or "spill" in line):
+            out.append(f"{take}: {line.strip()}")
+    return out
+
+
+def hgmma_count(name: str):
+    """Count of HGMMA (wgmma) instructions in the SASS of the built
+    ``lib<name>.so``, or None when the toolkit has no cuobjdump."""
+    import shutil
+    from repro_torch import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return sum("HGMMA" in line for line in sass.splitlines())
+
+
+def phase_model_kernels(dev, G, fa_log):
     """Phase 6: the model-scale kernels against their plain versions at
     the paths' shapes (``G``: the DP round's per-example gradients) and
-    at ragged edge shapes; returns their JSON entries."""
+    at ragged edge shapes; returns their JSON entries.  ``fa_log``: the
+    nvcc log of ``flash_attention.cu`` (empty if it was cached)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import fl_config_fig1b
@@ -908,6 +995,21 @@ def phase_model_kernels(dev, G):
                     bound_by=by, library_ms=None))
 
     # -- flash_attention at gemma2-2b's layer ------------------------------
+    # bf16 runs on the tensor cores (wgmma): its registers / spills, and
+    # the wgmma instructions in the built library
+    for line in ptxas_report(fa_log, "fa_bf16_kernel") or [
+            "(library cached: no ptxas report)"]:
+        print(f"phase model_kernels: flash_attention bf16 ptxas: {line}")
+    n_hgmma = hgmma_count("flash_attention")
+    if n_hgmma is None:
+        print("phase model_kernels: flash_attention: cuobjdump missing, "
+              "HGMMA count not taken")
+    else:
+        print(f"phase model_kernels: flash_attention HGMMA instructions in "
+              f"the library's SASS: {n_hgmma}")
+        if n_hgmma == 0:
+            fail("flash_attention: no HGMMA instruction in the library: "
+                 "the bf16 path is not on the tensor cores")
     cfg = layer_cfg("gemma2_2b")
     B, S = ATTN["B"], ATTN["S"]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -917,7 +1019,8 @@ def phase_model_kernels(dev, G):
         q, k, v = (randn(B, S, h, hd).to(dt) for h in (H, KV, KV))
         for window in (None, W):
             kw = dict(window=window, softcap=cap)
-            e = check_attention(q, k, v, f"S={S} window={window} {dt}", **kw)
+            e, whole, row = check_attention(
+                q, k, v, f"S={S} window={window} {dt}", **kw)
             ms = median_ms(lambda: attend(q, k, v, **kw))
             fl = attn_flops(B, S, H, hd, window)
             nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * q.element_size()
@@ -928,7 +1031,7 @@ def phase_model_kernels(dev, G):
                   f"ms={ms} flops={fl} bound_f32_ms={bms} ({by}) "
                   f"bound_bf16_tensor_core_ms={tc_ms} "
                   f"bytes_ms={1e3 * nbytes / HBM_BYTES_PER_S} "
-                  f"max_abs_err={e}")
+                  f"max_abs_err={e} rel_l2={whole} worst_row_rel_l2={row}")
             if dt == f32 and window is None:
                 pms = median_ms(lambda: attention_ref(q, k, v, **kw),
                                 n=3, reps=3)
@@ -938,6 +1041,22 @@ def phase_model_kernels(dev, G):
                                       "kernel.py:92",
                              max_abs_err=e, ms=ms, plain_ms=pms,
                              bound_ms=bms, bound_by=by)
+            if dt == bf16 and window is None:
+                # the bf16 kernel against the bf16 tensor cores' bound
+                pms = median_ms(lambda: attention_ref(q, k, v, **kw),
+                                n=3, reps=3)
+                entry.update(ms_bf16=ms, bound_bf16_ms=tc_ms,
+                             tensor_core_share=tc_ms / ms)
+                print(f"phase model_kernels: flash_attention bf16 global "
+                      f"tensor_core_share={tc_ms / ms} plain_ms={pms}")
+                # the rel L2 limits must catch one dropped kv tile
+                whole, row = planted_tile_drop(q, k, v, **kw)
+                print(f"phase model_kernels: flash_attention bf16 global "
+                      f"planted fault (last q tile without the 64 keys at "
+                      f"S/2): rel_l2={whole} worst_row_rel_l2={row}")
+                if whole <= ATTN_BF16_REL_L2 and row <= ATTN_BF16_ROW_REL_L2:
+                    fail("flash_attention: the bf16 rel L2 limits pass a "
+                         "dropped kv tile")
         # no single PyTorch call has the softcap: time the library call
         # and the kernel with the softcap off (global layer, causal, GQA)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -959,6 +1078,8 @@ def phase_model_kernels(dev, G):
               f"max_abs_diff={e_lib}")
         if dt == f32:
             entry["library_ms"] = lib_ms
+        else:
+            entry["library_bf16_ms"] = lib_ms
         del q, k, v, qt, kt, vt, lib, nocap
     edges = [
         check_attention(*(randn(2, 200, h, 64) for h in (4, 2, 2)),
@@ -973,8 +1094,21 @@ def phase_model_kernels(dev, G):
         check_attention(*(randn(2, 256, 8, 256) for _ in range(3)),
                         "MHA S=256 hd=256 window 100", window=100),
     ]
+    # shapes the bf16 kernel's tiles make hard: S around the 128-row q
+    # tile, hd not a multiple of 16 (zero fill), KV = 1, a window below
+    # the 64-key tile
+    for (b_, s_, h_, kv_, hd_, kw) in (
+            (1, 1, 4, 2, 64, {}), (2, 129, 4, 2, 128, {}),
+            (1, 127, 4, 2, 64, {"causal": False}), (1, 100, 2, 1, 8, {}),
+            (1, 150, 4, 2, 100, {"softcap": 30.0}), (1, 200, 8, 1, 64, {}),
+            (1, 300, 4, 2, 64, {"window": 9}),
+            (1, 1024, 8, 4, 256, {"window": 300, "softcap": 50.0})):
+        edges.append(check_attention(
+            *(randn(b_, s_, h, hd_).to(bf16) for h in (h_, kv_, kv_)),
+            f"bf16 B={b_} S={s_} H={h_} KV={kv_} hd={hd_} {kw}", **kw))
     print(f"phase model_kernels: flash_attention edges max_abs_err="
-          f"{max(edges)}")
+          f"{max(e[0] for e in edges)} worst_row_rel_l2="
+          f"{max(e[2] for e in edges)}")
     out.append(entry)
 
     # -- ssd_scan at mamba2-780m's mixer -----------------------------------
@@ -1138,13 +1272,21 @@ def phase_attention_layer(dev):
             if not bool((diff <= tol + tol * plain.float().abs()).all()):
                 fail(f"attention_layer ({dt}, window={window}): off the "
                      f"dense core by {float(diff.max())}")
+            if dt == torch.bfloat16:
+                whole, row = check_rel_l2(out, plain, what)
+            else:
+                whole, row = rel_l2(out, plain)
+            route = ("tensor cores (wgmma)" if dt == torch.bfloat16
+                     else "f32 pipes")
             print(f"phase attention_layer ({dt}, window={window}): B={B} "
-                  f"S={S} d_model={cfg.d_model} H={cfg.n_heads} "
+                  f"S={S} kernel_route={route} d_model={cfg.d_model} "
+                  f"H={cfg.n_heads} "
                   f"KV={cfg.n_kv_heads} hd={cfg.head_dim} "
                   f"softcap={cfg.attn_softcap} walls_s={walls} "
                   f"dense_core_walls_s={pwalls} max_abs_diff="
                   f"{float(diff.max())} max_abs_out="
-                  f"{float(plain.float().abs().max())}")
+                  f"{float(plain.float().abs().max())} rel_l2={whole} "
+                  f"worst_row_rel_l2={row}")
         del lp, x, out, plain
     return dict(launches.LAUNCHES)
 
@@ -1249,7 +1391,7 @@ def main() -> int:
     ssm_counts = phase_ssm_layer(dev)
     print(f"phase ssm_layer: wall_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
-    kernels += phase_model_kernels(dev, G)
+    kernels += phase_model_kernels(dev, G, logs.get("flash_attention", ""))
     print(f"phase model_kernels: wall_s={time.perf_counter() - t0}")
     # launches: each kernel's count from the path that runs it: the main
     # run for the four main-path kernels, the scenario runs (in-kernel
@@ -1262,8 +1404,13 @@ def main() -> int:
         k["launches"] = path_counts.get(k["name"], counts)[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                  for k in kernels]}))
+    # flash_attention's bf16 path beside its f32 one
+    bf16_keys = ("ms_bf16", "bound_bf16_ms", "library_bf16_ms",
+                 "tensor_core_share")
+    print(json.dumps({"kernels": [
+        {key: k[key] for key in keys + (
+            bf16_keys if k["name"] == "flash_attention" else ())}
+        for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,8 +4,11 @@ Replaces the reference's Pallas ``flash_attention``
 (``repro/kernels/flash_attention/kernel.py``, ``_fa_kernel``):
 online-softmax attention over ``q (B,S,H,hd)`` and ``k/v (B,S,KV,hd)``
 with causal and sliding-window masks, logit softcap and GQA, f32 or
-bf16 in, f32 accumulation, output in q's dtype.  Ragged S is masked in
-the kernel, not padded.  See the source's note for the design.
+bf16 in, f32 accumulation, output in q's dtype.  f32 runs on the f32
+pipes, bf16 on the tensor cores (wgmma; p rounded to bf16 before P V).
+Ragged S is masked in the kernel, not padded.  See the source's note
+for the design.  ``wgmma_probe`` runs the bf16 kernel's wgmma operand
+forms on single tiles: a test aid, off the main path.
 """
 from __future__ import annotations
 
@@ -30,7 +33,9 @@ def _fa():
         lib.fa_max_head_dim.argtypes = []
         lib.fa_attention.argtypes = ([_P] * 4 + [_I] * 6
                                      + [_F, _I, _I, _F, _P])
-        for fn in (lib.fa_max_head_dim, lib.fa_attention):
+        lib.fa_wgmma_probe.argtypes = [_P, _P, _P, _I, _P]
+        for fn in (lib.fa_max_head_dim, lib.fa_attention,
+                   lib.fa_wgmma_probe):
             fn.restype = _I
         _lib = lib
     return _lib
@@ -66,3 +71,26 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
         "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return o
+
+
+# form -> (A shape, B shape, N): see fa_wgmma_probe in the source
+PROBE_FORMS = {0: ((64, 256), (64, 256), 64),    # A smem . B K-major (Q K^T)
+               1: ((64, 64), (64, 256), 256),    # A regs . B MN-major (P V)
+               2: ((64, 64), (64, 64), 64),      # A regs . B K-major
+               3: ((64, 64), (64, 256), 256)}    # A smem . B MN-major
+
+
+def wgmma_probe(a, b, form: int):
+    """One warpgroup's wgmma product of bf16 tiles on the card, as the bf16
+    kernel lays them out: ``a @ b.T`` (B K-major) or ``a @ b`` (B
+    MN-major), f32 (64, N).  Not counted: nothing on the main path calls
+    it."""
+    a_shape, b_shape, n = PROBE_FORMS[form]
+    dev = a.device
+    _build.need(a, "a", torch.bfloat16, a_shape, dev)
+    _build.need(b, "b", torch.bfloat16, b_shape, dev)
+    d = torch.empty((64, n), dtype=torch.float32, device=dev)
+    _build.check(_fa().fa_wgmma_probe(a.data_ptr(), b.data_ptr(),
+                                      d.data_ptr(), form, _build.stream(dev)),
+                 "fa_wgmma_probe")
+    return d

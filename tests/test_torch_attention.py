@@ -105,6 +105,102 @@ def test_non_causal_odd_S_matches_attention_ref(dtype):
     _close(got, want, TOL[dtype])
 
 
+def _bf16_kernel_model(q, k, v, *, window, softcap, kv_block=64):
+    """Plain-torch model of the rounding of the bf16 tensor-core kernel
+    (``csrc/flash_attention.cu``, ``tc::fa_bf16_kernel``): f32 scores of
+    the bf16 operands, scaled after the product; the online softmax over
+    64-key tiles in f32; p rounded to bf16 before P V (f32 accumulation),
+    the row sum l taken from the f32 p; the output, O * (1/l), rounded to
+    bf16."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qf = q.float().reshape(B, S, KV, H // KV, hd)
+    kf, vf = k.float(), v.float()
+    scale = 1.0 / np.sqrt(hd)
+    m = torch.full((B, KV, H // KV, S), -1e30)
+    l = torch.zeros((B, KV, H // KV, S))
+    acc = torch.zeros((B, KV, H // KV, S, hd))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, kv_block):
+        kt, vt = kf[:, k0:k0 + kv_block], vf[:, k0:k0 + kv_block]
+        s = torch.einsum("bqkgh,bskh->bkgqs", qf, kt)
+        if softcap is not None:
+            s = softcap * torch.tanh(s * np.float32(scale / softcap))
+        else:
+            s = s * np.float32(scale)
+        cols = torch.arange(k0, k0 + kt.shape[1])[None, :]
+        mask = cols <= rows
+        if window is not None:
+            mask = mask & (rows - cols < window)
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskh->bkgqh", p.to(torch.bfloat16).float(), vt)
+        m = m_new
+    o = acc * (1.0 / l.clamp_min(1e-30))[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("window", [None, 300], ids=["global", "window300"])
+@pytest.mark.parametrize("scale", [1.0, 3.0])
+def test_bf16_kernel_rounding_fits_the_bf16_budget(window, scale):
+    """The bf16 kernel's only new rounding (p in bf16 before P V) keeps it
+    within the reference suite's bf16 tolerance of the reference's
+    ``attention_ref`` at gemma2's head_dim 256 with softcap 50, causal,
+    global and windowed: the design fits the budget before any card runs
+    it."""
+    q, k, v = _qkv(11, 1, 1024, 2, 1, 256, scale)
+    jq = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    want = jfa.attention_ref(*jq, window=window, softcap=50.0)
+    got = _bf16_kernel_model(*(torch.tensor(a).to(torch.bfloat16)
+                               for a in (q, k, v)),
+                             window=window, softcap=50.0)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, TOL["bfloat16"])
+
+
+# chip_smoke.py's bf16 limits beside ATTN_TOL: ||out - ref|| / ||ref||
+# whole and in the worst output row
+REL_L2, ROW_REL_L2 = 5e-3, 2e-2
+
+
+def _rel_l2(got, want):
+    d = got.reshape(-1, got.shape[-1]) - want.reshape(-1, want.shape[-1])
+    r = want.reshape(-1, want.shape[-1])
+    rows = np.linalg.norm(d, axis=1) / np.linalg.norm(r, axis=1)
+    return np.linalg.norm(d) / np.linalg.norm(r), rows.max()
+
+
+@pytest.mark.parametrize("window", [None, 300], ids=["global", "window300"])
+@pytest.mark.parametrize("scale", [1.0, 3.0])
+def test_bf16_kernel_rounding_fits_the_rel_l2_limits(window, scale):
+    """The bf16 kernel's rounding model stays within chip_smoke.py's rel
+    L2 limits of the reference's ``attention_ref`` (the limits that hold
+    the kernel where ATTN_TOL's 2e-2 abs exceeds most outputs), and a
+    planted fault, the last 128-row q tile attending without the 64 keys
+    at S/2, reads far above the worst-row limit."""
+    q, k, v = _qkv(11, 1, 1024, 2, 1, 256, scale)
+    jq = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    want = np.asarray(jfa.attention_ref(*jq, window=window, softcap=50.0),
+                      np.float32)
+    got = _bf16_kernel_model(*(torch.tensor(a).to(torch.bfloat16)
+                               for a in (q, k, v)),
+                             window=window, softcap=50.0).float().numpy()
+    whole, row = _rel_l2(got, want)
+    assert whole <= REL_L2 and row <= ROW_REL_L2, (whole, row)
+    if window is None:
+        # cutting the 64 positions out is exact for causal attention
+        # without a window
+        cut = [jnp.concatenate([a[:, :512], a[:, 576:]], axis=1) for a in jq]
+        dropped = np.asarray(jfa.attention_ref(*cut, softcap=50.0),
+                             np.float32)
+        got[:, -128:] = dropped[:, -128:]
+        assert _rel_l2(got, want)[1] > 5 * ROW_REL_L2
+
+
 # --- models/common.py -----------------------------------------------------
 
 def test_common_norms_and_activations():

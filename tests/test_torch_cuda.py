@@ -12,7 +12,9 @@ noise's stream bit for bit and its rows within ROW_RTOL (CUDA's
 logf/cosf against PyTorch's log/cos); the slice on the card against
 the same slice on the CPU; and the model-scale kernels (DP clip,
 flash attention, SSD scan) against their plain versions at ragged
-shapes, f32 and bf16, within the reference suite's tolerances.
+shapes, f32 and bf16, within the reference suite's tolerances; the bf16
+attention kernel also at the shapes its tensor-core tiles make hard, and
+its wgmma operand forms (the layout probe) against torch.matmul.
 """
 import numpy as np
 import pytest
@@ -233,6 +235,18 @@ def test_clip_accumulate_matches_plain_version(dev, N, D, dtype):
     (1, 77, 2, 2, 32, {"softcap": 50.0}),
     (2, 256, 8, 8, 256, {"window": 100}),
     (1, 70, 2, 1, 100, {"causal": False, "window": 9}),        # odd hd
+    # shapes the bf16 kernel's tiles make hard (128-row q tiles, 64-key
+    # kv tiles, 16-column k-steps, zero fill beyond hd and S)
+    (1, 1, 4, 2, 64, {}),                                      # S = 1
+    (2, 1, 2, 1, 256, {"causal": False}),
+    (1, 127, 4, 2, 64, {}),                                    # q tile - 1
+    (2, 129, 4, 2, 128, {}),                                   # q tile + 1
+    (1, 129, 2, 2, 64, {"causal": False, "softcap": 20.0}),
+    (1, 100, 2, 1, 8, {}),                                     # hd 8
+    (1, 150, 4, 2, 100, {"softcap": 30.0}),                    # hd 100
+    (1, 200, 8, 1, 64, {}),                                    # KV = 1
+    (1, 300, 4, 2, 64, {"window": 9}),                         # window < tile
+    (1, 1024, 8, 4, 256, {"window": 300, "softcap": 50.0}),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain_version(dev, B, S, H, KV, hd, kw,
@@ -251,6 +265,32 @@ def test_flash_attention_matches_plain_version(dev, B, S, H, KV, hd, kw,
     assert bool(((o.float() - p).abs() <= tol + tol * p.abs()).all())
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention"] == 2
+
+
+@pytest.mark.parametrize("form", [0, 1, 2, 3])
+def test_wgmma_layout_probe_matches_matmul(dev, form):
+    """The bf16 kernel's wgmma operand forms (A shared K-major or in
+    registers, B shared K-major or MN-major) through its swizzled copies,
+    descriptors and fragment maps, against torch.matmul of the same bf16
+    tiles in f32, within 1e-5 * sum|terms|."""
+    from repro_torch.kernels import LAUNCHES, reset
+    from repro_torch.kernels.flash_attention.kernel import (PROBE_FORMS,
+                                                            wgmma_probe)
+    a_shape, b_shape, n = PROBE_FORMS[form]
+    g = torch.Generator(device=dev).manual_seed(form)
+    a = torch.randn(a_shape, generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn(b_shape, generator=g, device=dev).to(torch.bfloat16)
+    reset()
+    d = wgmma_probe(a, b, form)
+    af, bf = a.float(), b.float()
+    if form in (0, 2):                      # B K-major: d = a b^T
+        bf = bf.T
+    want = af @ bf
+    tol = SUM_RTOL * (af.abs() @ bf.abs())
+    assert d.shape == (64, n)
+    assert bool(((d - want).abs() <= tol).all())
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_attention"] == 0
 
 
 @pytest.mark.parametrize("b,s,h,p,n,chunk,init", [
