@@ -9,8 +9,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    main run (bitwise where the kernel keeps the plain version's
    rounding, within a stated tolerance where it reorders a sum), twice
    for identical bits, with its median time (CUDA graph of launches,
-   CUDA events), its bound and the plain version's time; also
-   ``bucket_apply`` at FedAsync's ``A = R`` with decay weights and
+   CUDA events), its bound and the plain version's time; the clip+noise
+   kernels with and without their weighted sum (agg), the in-kernel one
+   at no, half and all rows masked with signed zeros in pass-through
+   rows;
+   also ``bucket_apply`` at FedAsync's ``A = R`` with decay weights and
    ``tick_scatter`` at its ``G = L * R``, and the in-kernel noise's
    counter stream bit for bit;
 2. the FedSGD census case (C = 4096), whose integer op census must
@@ -22,8 +25,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    then the same with the noise generated in the kernel;
 4. the scenarios: the same configuration under ``mobile_diurnal`` with
    FedAsync and under ``iot_straggler`` with FedBuff and a ring of 2
-   ticks (updates spill into the overflow bucket), in-kernel noise,
-   each repeated with operand noise (identical integer state);
+   ticks (updates spill into the overflow bucket), in-kernel noise
+   (with the masked share of each noise launch), each repeated with
+   operand noise (identical integer state);
 5. a small stratified + overflow + DP case on the card against the
    port's plain CPU run, with both noise sources;
 6. the model-scale kernels (``clip_accumulate``, ``flash_attention``,
@@ -65,9 +69,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
 INT32_OPS = 33.5e12
-# int32 operations of one element of the in-kernel noise: threefry2x32
-# (2 key adds, 20 rounds of add + rotate (shift, shift, or) + xor, 5 key
-# injections of 3 adds) and the two shifts that take the top 24 bits
+# int32 operations of one element of the in-kernel noise that needs its
+# normal (an element of a masked row; a pass-through element is a copy):
+# threefry2x32 (2 key adds, 20 rounds of add + rotate (shift, shift, or)
+# + xor, 5 key injections of 3 adds) and the two shifts that take the top
+# 24 bits
 PRNG_INT_OPS = 2 + 20 * 5 + 5 * 3 + 2
 # f32 operations of that element: Box-Muller (u1: mul + add; u2: mul;
 # -2 log u1: log + mul; sqrt; 2 pi u2: mul; cos; the product) and the
@@ -332,21 +338,34 @@ def phase_kernels(dev):
                  f"{float((a1 - pa).abs().max())}")
         err = max(err, float((o1 - po).abs().max()),
                   float((a1 - pa).abs().max()))
-    # timed as the main run calls it: no round clip, noise on
+        o3, a3 = cohort_clip_noise(u, noise, wts, mask, clip=clip,
+                                   noise_scale=ns, with_agg=False)
+        if a3 is not None or not bits_equal(o3, o1):
+            fail(f"cohort_clip_noise (clip={clip}, with_agg=False): agg "
+                 f"not None or rows differ from with_agg=True")
+    # timed as the main run calls it: no round clip, noise on; with agg
+    # (as in earlier runs) and without (as the engine calls it)
     ms = median_ms(lambda: cohort_clip_noise(u, noise, wts, mask, clip=0.0,
                                              noise_scale=ns))
+    ms_noagg = median_ms(lambda: cohort_clip_noise(
+        u, noise, wts, mask, clip=0.0, noise_scale=ns, with_agg=False))
     pms = median_ms(lambda: cohort_clip_noise_ref(u, noise, wts, mask,
                                                   clip=0.0, noise_scale=ns))
     # read u and the noise of masked rows, mask, weights; write out, agg
     bms, by = bound(f4 * (C * D + nd * D + 2 * C + C * D + D),
                     4 * C * D + 2 * C * D)
+    print(f"phase kernels: cohort_clip_noise C={C} D={D} masked_share="
+          f"{nd / C} ms_with_agg={ms} ms_without_agg={ms_noagg} "
+          f"bound_ms={bms} ({by})")
     out.append(dict(name="cohort_clip_noise", route="cuda",
                     source="src/repro_torch/csrc/cohort_dp.cu",
                     replaces="src/repro/kernels/cohort_dp/kernel.py:103",
                     max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                     bound_by=by, library_ms=None))
 
-    # -- cohort_clip_noise_prng: the stream, then clip > 0 and clip = 0 ----
+    # -- cohort_clip_noise_prng: the stream; then at no, half and all rows
+    # masked, clip > 0 and clip = 0, with and without agg, on a copy of u
+    # with signed zeros in two of every five columns --------------------
     key = prng.fold_in(prng.PRNGKey(MAIN["seed"] ^ NOISE_SALT), 1)
     w0, w1 = prng_words_probe(key, C * D, dev)
     p0, p1 = prng.counter_words(key, C * D, device=dev)
@@ -355,44 +374,80 @@ def phase_kernels(dev):
              "from repro_torch.prng on the flat index")
     del w0, w1, p0, p1
     n = counter_normals(key, C, D, device=dev)
+    u_z = u.clone()
+    u_z[:, ::5] = -0.0
+    u_z[:, 1::5] = 0.0
+    neg0 = u_z.view(torch.int32) == -2 ** 31
+    # no row masked is close to the scenario runs' case: a launch there
+    # masks few rows (this script's scenarios phase prints the share)
+    masks = {0.0: torch.zeros_like(mask), 0.5: mask,
+             1.0: torch.ones_like(mask)}
     err = 0.0
-    for clip in (1.0, 0.0):
-        o1, a1 = cohort_clip_noise_prng(u, key, wts, mask, clip=clip,
-                                        noise_scale=ns)
-        o2, a2 = cohort_clip_noise_prng(u, key, wts, mask, clip=clip,
-                                        noise_scale=ns)
-        po, pa = cohort_clip_noise_prng_ref(u, key, wts, mask, clip=clip,
+    for share, m in masks.items():
+        w_m = eta * m.to(torch.float32)
+        for clip in (1.0, 0.0):
+            what = f"cohort_clip_noise_prng (share={share}, clip={clip})"
+            o1, a1 = cohort_clip_noise_prng(u_z, key, w_m, m, clip=clip,
                                             noise_scale=ns)
-        if not (bits_equal(o1, o2) and bits_equal(a1, a2)):
-            fail(f"cohort_clip_noise_prng (clip={clip}): two launches "
-                 f"differ")
-        if not bits_equal(o1[~mask], u[~mask]):
-            fail("cohort_clip_noise_prng: pass-through rows are not u")
-        # CUDA's logf / cosf against PyTorch's log / cos: a few ulp of n
-        row_tol = ROW_RTOL * (u.abs() + ns * n.abs())
-        if not bool(((o1 - po).abs() <= row_tol).all()):
-            fail(f"cohort_clip_noise_prng (clip={clip}) rows off by "
-                 f"{float((o1 - po).abs().max())}")
-        agg_tol = SUM_RTOL * (wts.abs() @ po.abs())
-        if not bool(((a1 - pa).abs() <= agg_tol + 1e-30).all()):
-            fail(f"cohort_clip_noise_prng (clip={clip}) agg off by "
-                 f"{float((a1 - pa).abs().max())}")
-        err = max(err, float((o1 - po).abs().max()),
-                  float((a1 - pa).abs().max()))
-    del n, o1, o2, po
-    ms = median_ms(lambda: cohort_clip_noise_prng(u, key, wts, mask,
-                                                  clip=0.0, noise_scale=ns))
+            o2, a2 = cohort_clip_noise_prng(u_z, key, w_m, m, clip=clip,
+                                            noise_scale=ns)
+            o3, a3 = cohort_clip_noise_prng(u_z, key, w_m, m, clip=clip,
+                                            noise_scale=ns, with_agg=False)
+            po, pa = cohort_clip_noise_prng_ref(u_z, key, w_m, m, clip=clip,
+                                                noise_scale=ns)
+            if not (bits_equal(o1, o2) and bits_equal(a1, a2)):
+                fail(f"{what}: two launches differ")
+            if a3 is not None or not bits_equal(o3, o1):
+                fail(f"{what}: with_agg=False gave an agg or other rows")
+            # pass-through rows: u itself, but -0.0 takes the sign of 0 * n
+            pt = ~m
+            if not bits_equal(o1[pt], po[pt]):
+                fail(f"{what}: pass-through rows are not the plain "
+                     f"version's bits")
+            keep = pt[:, None] & ~neg0
+            if not bits_equal(o1[keep], u_z[keep]):
+                fail(f"{what}: pass-through rows are not u")
+            # CUDA's logf / cosf against PyTorch's log / cos: a few ulp of n
+            row_tol = ROW_RTOL * (u_z.abs() + ns * n.abs())
+            if not bool(((o1 - po).abs() <= row_tol).all()):
+                fail(f"{what} rows off by {float((o1 - po).abs().max())}")
+            agg_tol = SUM_RTOL * (w_m.abs() @ po.abs())
+            if not bool(((a1 - pa).abs() <= agg_tol + 1e-30).all()):
+                fail(f"{what} agg off by {float((a1 - pa).abs().max())}")
+            err = max(err, float((o1 - po).abs().max()),
+                      float((a1 - pa).abs().max()))
+            z = pt[:, None] & neg0
+            print(f"phase kernels: {what} ok: max_abs_err="
+                  f"{float((o1 - po).abs().max())} pass-through -0.0 "
+                  f"elements {int(z.sum())}, "
+                  f"{int((o1.view(torch.int32)[z] == 0).sum())} now +0.0")
+    del n, o1, o2, o3, po, u_z, neg0
+    # timed at the main run's shapes on u (no planted zeros): no, half and
+    # all rows masked, with agg and without (the engine's call).  Bound: read
+    # u, mask (and weights); write out (and agg); a hash and its normal
+    # for each element of a masked row only
+    times = {}
+    for share, m in masks.items():
+        w_m = eta * m.to(torch.float32)
+        hashed = int(m.sum()) * D
+        for with_agg in (True, False):
+            t = median_ms(lambda: cohort_clip_noise_prng(
+                u, key, w_m, m, clip=0.0, noise_scale=ns,
+                with_agg=with_agg))
+            nbytes = f4 * (2 * C * D + C + (C + D if with_agg else 0))
+            b_ms, o_ms = bound_terms(nbytes, PRNG_F32_OPS * hashed,
+                                     PRNG_INT_OPS * hashed)
+            bms, by = bound(nbytes, PRNG_F32_OPS * hashed,
+                            PRNG_INT_OPS * hashed)
+            times[(share, with_agg)] = (t, bms, by)
+            print(f"phase kernels: cohort_clip_noise_prng C={C} D={D} "
+                  f"masked_share={share} with_agg={with_agg} "
+                  f"bound_ms={bms} ({by}) bound_bytes_ms={b_ms} "
+                  f"bound_ops_ms={o_ms} (int32 {PRNG_INT_OPS}/hashed elt, "
+                  f"f32 {PRNG_F32_OPS}/hashed elt, {hashed} hashed) ms={t}")
+    ms, bms, by = times[(0.5, True)]
     pms = median_ms(lambda: cohort_clip_noise_prng_ref(
         u, key, wts, mask, clip=0.0, noise_scale=ns), n=3, reps=3)
-    # read u, mask, weights; write out, agg.  Every element draws its
-    # normal (a pass-through row adds (ns * 0) * n, as the operand kernel)
-    nbytes = f4 * (C * D + 2 * C + C * D + D)
-    b_ms, o_ms = bound_terms(nbytes, PRNG_F32_OPS * C * D,
-                             PRNG_INT_OPS * C * D)
-    bms, by = bound(nbytes, PRNG_F32_OPS * C * D, PRNG_INT_OPS * C * D)
-    print(f"phase kernels: cohort_clip_noise_prng C={C} D={D} "
-          f"bound_bytes_ms={b_ms} bound_ops_ms={o_ms} "
-          f"(int32 {PRNG_INT_OPS}/elt, f32 {PRNG_F32_OPS}/elt)")
     out.append(dict(name="cohort_clip_noise_prng", route="cuda",
                     source="src/repro_torch/csrc/cohort_dp.cu",
                     replaces="src/repro/kernels/cohort_dp/kernel.py:139",
@@ -491,6 +546,21 @@ def time_noise(eng):
 
     eng._clip_noise = timed
     return lambda: sum(a.elapsed_time(b) for a, b in spans)
+
+
+def count_masked(eng):
+    """Record the masked rows of each round-completion noise call as a
+    device count (no host sync); returns a function giving them as ints."""
+    import torch
+    counts = []
+    inner = eng._clip_noise
+
+    def counted(U, eta, done, t):
+        counts.append(done.sum())
+        return inner(U, eta, done, t)
+
+    eng._clip_noise = counted
+    return lambda: torch.stack(counts).tolist() if counts else []
 
 
 class count_normal_draws:
@@ -659,6 +729,7 @@ def phase_scenarios(dev, X, y, kw):
     from repro_torch.scenarios import get_scenario
 
     runs = {}
+    shares = []
     launches.reset()
     for dp_rng in ("in_kernel", "operand"):
         if dp_rng == "operand":
@@ -675,6 +746,7 @@ def phase_scenarios(dev, X, y, kw):
                            strategy=strat, dp_rng=dp_rng, **kw)
             eng = sim.engine
             noise_ms = time_noise(eng)
+            masked = count_masked(eng) if dp_rng == "in_kernel" else None
             torch.cuda.reset_peak_memory_stats(dev)
             before = dict(launches.LAUNCHES)
             with count_normal_draws() as draws:
@@ -711,6 +783,16 @@ def phase_scenarios(dev, X, y, kw):
                   f"peak_mem_gb="
                   f"{torch.cuda.max_memory_allocated(dev) / 1e9} "
                   f"launches={counts}")
+            if masked is not None:
+                share = [k / eng.C for k in masked()]
+                if len(share) != counts["cohort_clip_noise_prng"]:
+                    fail(f"{sc['tag']}: {len(share)} noise calls, "
+                         f"{counts['cohort_clip_noise_prng']} launches")
+                shares += share
+                print(f"phase scenarios {sc['tag']} ({dp_rng}): masked "
+                      f"share of the cohort_clip_noise_prng launches: "
+                      f"mean={statistics.fmean(share)} max={max(share)} "
+                      f"min={min(share)} launches={len(share)}")
             runs[(sc["tag"], dp_rng)] = (int_state(eng), eng.fused_iters,
                                          loss)
     for name in ("bucket_apply", "tick_deliver", "tick_scatter",
@@ -727,6 +809,9 @@ def phase_scenarios(dev, X, y, kw):
               f"between noise sources ({len(a[0])} int32 fields); losses "
               f"in_kernel={a[2]} operand={b[2]}")
     print(f"phase scenarios: launches on the in-kernel runs {path_counts}")
+    print(f"phase scenarios: masked share of the "
+          f"{len(shares)} cohort_clip_noise_prng launches: "
+          f"mean={statistics.fmean(shares)} max={max(shares)}")
     return path_counts
 
 

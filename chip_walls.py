@@ -1,0 +1,96 @@
+#!/usr/bin/env python3
+"""End-to-end walls of the port's cohort runs on one NVIDIA GPU.
+
+    python3 chip_walls.py [TREE] [LABEL]
+
+Runs, from the checkout at TREE (default: this one), the main run of
+``chip_smoke.py`` (C = 16384, D = 785, DP on) with operand and with
+in-kernel noise, twice each, then the two scenario runs with in-kernel
+noise, and prints one ``walls LABEL ...`` line per run: the wall, ms
+per tick, and the CUDA-event spans of the round-completion noise calls
+(sum, median, first, max).  The spans include any time the card waits
+for the host inside the call.  To compare two commits, unpack the other
+one into a directory that ``.gitignore`` lists and run both in one call,
+in turns (parent, change, change, parent); each run is its own process.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import statistics
+import subprocess
+import sys
+
+
+def spans(eng):
+    """CUDA events around each ``_clip_noise`` call; returns a function
+    giving their spans in ms."""
+    import torch
+    out = []
+    inner = eng._clip_noise
+
+    def timed(*a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = inner(*a, **k)
+        e1.record()
+        out.append((e0, e1))
+        return res
+
+    eng._clip_noise = timed
+    return lambda: [a.elapsed_time(b) for a, b in out]
+
+
+def main() -> int:
+    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+                           os.path.dirname(os.path.abspath(__file__)))
+    label = sys.argv[2] if len(sys.argv) > 2 else os.path.basename(root)
+    sys.path[:0] = [root, os.path.join(root, "src")]
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_walls: no CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    import repro_torch as rt
+    from repro_torch import _build
+    from repro_torch.scenarios import get_scenario
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    _build.build_all(["tick_fused", "cohort_dp"])
+    dev = torch.device("cuda")
+    X, y, kw = cs.main_inputs()
+
+    def run(what, block, rounds, eval_every, **extra):
+        sim = cs.make_sim(dev, X, y, block=block, **kw, **extra)
+        get = spans(sim.engine)
+        res, wall = cs.timed_run(sim, rounds, eval_every)
+        s, ticks = get(), res["telemetry"].ticks
+        print(f"walls {label} {what}: wall_s={wall} ticks={ticks} "
+              f"ms_per_tick={1e3 * wall / ticks} noise_calls={len(s)} "
+              f"noise_ms_sum={sum(s)} "
+              f"noise_ms_median={statistics.median(s) if s else 0.0} "
+              f"noise_ms_first={s[0] if s else 0.0} "
+              f"noise_ms_max={max(s) if s else 0.0}", flush=True)
+
+    m = cs.MAIN
+    for rep in range(2):
+        for dp_rng in ("operand", "in_kernel"):
+            run(f"main {dp_rng} rep{rep}", m["block"], m["rounds"],
+                m["rounds"] // 2, dp_rng=dp_rng)
+    for sc in cs.SCENARIOS:
+        scn = get_scenario(sc["scenario"])
+        if sc["ring_cap"] is not None:
+            scn = dataclasses.replace(scn, ring_cap=sc["ring_cap"])
+        kind, hp = sc["strategy"]
+        strat = (rt.core.FedAsyncStrategy(**hp) if kind == "fedasync"
+                 else rt.core.FedBuffStrategy(**hp))
+        run(f"{sc['tag']} in_kernel", sc["block"], sc["rounds"],
+            sc["rounds"], scenario=scn, strategy=strat, dp_rng="in_kernel")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -490,21 +490,21 @@ class DeviceCohortEngine:
             buf_vec=buf_vec, buf_cnt=buf_cnt, ops=ops), preds
 
     def _clip_noise(self, U, eta, done, t: int):
-        """Round-completion DP of the finishing rows; the weighted sum
-        (agg) is computed and not used: the ring scatter re-weights by
-        arrival slot."""
+        """Round-completion DP of the finishing rows, without the kernels'
+        weighted sum (agg): the ring scatter re-weights by arrival slot."""
         wts = eta * done.to(F32)
         key = prng.fold_in(self._noise_base, t)            # CPU scalar key
         if self.dp_rng == "in_kernel":
             sent, _ = cohort_clip_noise_prng(
                 U, key, wts, done, clip=self.dp_round_clip,
-                noise_scale=self.noise_scale)
+                noise_scale=self.noise_scale, with_agg=False)
             return sent
         noise = (prng.normal(key, (self.C, self.D), device=self.device)
                  if self.noise_scale > 0.0 else None)
         sent, _ = cohort_clip_noise(U, noise, wts, done,
                                     clip=self.dp_round_clip,
-                                    noise_scale=self.noise_scale)
+                                    noise_scale=self.noise_scale,
+                                    with_agg=False)
         return sent
 
     def _far_plan(self, t, i, k, far_mask, any_far, ovf_at, ovf_cnt,

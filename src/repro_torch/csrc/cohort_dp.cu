@@ -26,16 +26,40 @@
 //
 // Bounds: the operand path is an f32 stream over [C, D] (read U and the
 // noise, write out), bound by device-memory bytes.  The PRNG path reads
-// U and writes out only, and does ~100 int32 operations of the hash
-// plus logf, cosf and a square root per element: against the card's
-// int32 rate that work takes about as long as the bytes, so it may be
-// bound by operations.  Design: block b owns kRows client rows; its
-// warps first reduce each row's squared norm (lane-strided sums, then a
-// fixed xor-shuffle tree), then its threads sweep the columns, writing
-// out[c] and the partial sums of agg for its rows in ascending c while
-// the rows are still in L1/L2.  A second pass adds the block partials in
-// ascending b.  No atomics: two runs give the same bits.  Ragged C and D
-// are masked in the kernel, never padded.
+// U and writes out, and hashes only where the noise term can change the
+// output: ~120 int32 operations of threefry plus logf, cosf and a square
+// root per element of a masked row.  With half the rows masked the
+// bytes bound it, with every row masked the int32 operations; on a tick
+// where few clients finish a round it is nearly a copy.
+//
+// Design (one launch of each step on the caller's stream):
+// 1. Row scales (clip > 0 only): one warp per row with mask[c] != 0
+//    sums the row's squares (lane-strided, then a fixed xor-shuffle
+//    tree) into s_c; a row with mask[c] == 0 gets exactly 1.0f without
+//    reading U, the bits of 1 + 0 * (s - 1) since s is always finite
+//    (fmaxf below keeps it in [0, 1]).  With clip <= 0 there is no
+//    step: the scale is 1 + mask * 0, computed in place.
+// 2. The elementwise pass over the flat index i in [0, C * D): each
+//    thread takes kElts consecutive elements (16-byte loads and stores
+//    where the pointers allow), steps their row and column from one
+//    divide, and hashes their kElts counters as independent chains, so
+//    that many hashes are in flight per SM.  A grid of one group per
+//    thread fills every SM; blocks that find pass-through rows end early
+//    and the scheduler refills the SM.  The ragged end of C * D is
+//    masked, never padded.
+//    Pass-through elements skip the hash.  Where the row's noise factor
+//    noise_scale * mask[c] is 0, the noise term is (+-0) * n = +-0 for a
+//    finite n, and o + (+-0) == o bit for bit unless o is -0.0, where
+//    the sign of 0 * n decides.  So such elements write o (for a
+//    pass-through row, u itself) and only an element whose o has the
+//    bits 0x80000000 still hashes.  This holds for the generated noise
+//    alone (u1 >= 2^-25, so n is finite); the operand noise is read for
+//    every element, since 0 * inf is NaN.
+// 3. agg, only when the caller asks for it: block b sums rows
+//    [64 b, 64 b + 64) of out into partial[b] in ascending c, then a
+//    finish pass adds the partials in ascending b.  No atomics: two
+//    runs give the same bits, and the sums match the row-block order of
+//    the kernel this one replaced.
 //
 // Rounding: explicit round-to-nearest intrinsics, precise logf/cosf (no
 // fast math), built with -fmad=false; out rows with clip <= 0 match the
@@ -53,8 +77,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// client rows per block (fixed: it sets the add order of agg)
+// client rows per agg partial (fixed: it sets the add order of agg)
 constexpr int kRows = 64;
+// consecutive elements per thread in the elementwise pass
+constexpr int kElts = 4;     // a multiple of 4
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -92,61 +118,141 @@ __device__ __forceinline__ float counter_normal(uint32_t k0, uint32_t k1,
                    cosf(__fmul_rn(6.2831855f, u2)));
 }
 
-// The noise of element i: read from the operand, or generated.
+// kElts consecutive elements from i0 (cnt of them at the ragged end);
+// vec: 16-byte accesses (the pointer is 16-byte aligned)
+__device__ __forceinline__ void load_elts(const float* __restrict__ p,
+                                          size_t i0, int cnt, bool vec,
+                                          float* v) {
+  if (vec && cnt == kElts) {
+#pragma unroll
+    for (int q = 0; q < kElts; q += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + i0 + q);
+      v[q] = x.x; v[q + 1] = x.y; v[q + 2] = x.z; v[q + 3] = x.w;
+    }
+  } else {
+    for (int j = 0; j < cnt; ++j) v[j] = p[i0 + j];
+  }
+}
+
+__device__ __forceinline__ void store_elts(float* __restrict__ p, size_t i0,
+                                           int cnt, bool vec, const float* v) {
+  if (vec && cnt == kElts) {
+#pragma unroll
+    for (int q = 0; q < kElts; q += 4)
+      *reinterpret_cast<float4*>(p + i0 + q) =
+          make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+  } else {
+    for (int j = 0; j < cnt; ++j) p[i0 + j] = v[j];
+  }
+}
+
+// The noise of elements i0 .. i0 + cnt - 1: read from the operand, or
+// generated.  kSkipZero: a zero noise factor may skip the noise (it is
+// finite, so 0 * n is a signed zero).
 struct OperandNoise {
+  static constexpr bool kSkipZero = false;
   const float* noise;
-  __device__ float operator()(size_t i) const { return noise[i]; }
+  __device__ void fill(size_t i0, int cnt, bool vec, float* nz) const {
+    load_elts(noise, i0, cnt, vec, nz);
+  }
 };
 struct CounterNoise {
+  static constexpr bool kSkipZero = true;
   uint32_t k0, k1;
-  __device__ float operator()(size_t i) const {
-    return counter_normal(k0, k1, (uint64_t)i);
+  // all kElts hashes, independent chains (past the end: unused)
+  __device__ void fill(size_t i0, int, bool, float* nz) const {
+#pragma unroll
+    for (int j = 0; j < kElts; ++j)
+      nz[j] = counter_normal(k0, k1, (uint64_t)(i0 + j));
   }
 };
 
-template <typename Noise>
-__global__ void clip_noise_rows_kernel(const float* __restrict__ u,
-                                       Noise noise,
-                                       const float* __restrict__ mask,
-                                       const float* __restrict__ wgt,
-                                       float* __restrict__ out,
-                                       float* __restrict__ partial, int C,
-                                       int D, float clip, float noise_scale) {
-  __shared__ float scale_s[kRows];
+// Step 1: s_c of each row with mask[c] != 0, exactly 1.0f elsewhere.
+__global__ void __launch_bounds__(kThreads)
+    row_scale_kernel(const float* __restrict__ u,
+                     const float* __restrict__ mask,
+                     float* __restrict__ scale, int C, int D, float clip) {
+  const int r = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= C) return;
+  const float m = mask[r];
+  if (m == 0.0f) {              // warp-uniform: the whole warp leaves
+    if (lane == 0) scale[r] = 1.0f;
+    return;
+  }
+  const float* row = u + (size_t)r * D;
+  float sq = 0.0f;
+  for (int d = lane; d < D; d += 32) sq = __fadd_rn(sq, __fmul_rn(row[d], row[d]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, off));
+  const float s = __fdiv_rn(1.0f, fmaxf(1.0f, __fdiv_rn(__fsqrt_rn(sq), clip)));
+  if (lane == 0) scale[r] = __fadd_rn(1.0f, __fmul_rn(m, __fsub_rn(s, 1.0f)));
+}
+
+// Step 2: out[i] = u[i] * s_c + (noise_scale * mask[c]) * n(i), c = i / D.
+// scale == nullptr: clip <= 0, s_c = 1 + mask[c] * 0.  kNarrow: C * D
+// fits 32 bits, and c = i / D is a 32-bit divide (a 64-bit divide is a
+// long software routine, slow enough to hold the whole pass back).
+template <typename Noise, bool kNarrow>
+__global__ void __launch_bounds__(kThreads)
+    clip_noise_elts_kernel(const float* __restrict__ u, Noise noise,
+                           const float* __restrict__ mask,
+                           const float* __restrict__ scale,
+                           float* __restrict__ out, long long n, int D,
+                           float noise_scale, bool vec) {
+  const long long i0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * kElts;
+  if (i0 >= n) return;
+  const int cnt = (int)min((long long)kElts, n - i0);
+  float o[kElts], nsm[kElts];
+  load_elts(u, (size_t)i0, cnt, vec, o);
+  const bool noise_on = noise_scale > 0.0f;
+  int r = kNarrow ? (int)((unsigned)i0 / (unsigned)D) : (int)(i0 / D);
+  int col = (int)(i0 - (long long)r * D);
+  bool hash = false;
+#pragma unroll
+  for (int j = 0; j < kElts; ++j) {
+    if (j < cnt) {
+      const float m = mask[r];
+      const float s = scale ? scale[r] : __fadd_rn(1.0f, __fmul_rn(m, 0.0f));
+      o[j] = __fmul_rn(o[j], s);
+      nsm[j] = __fmul_rn(noise_scale, m);
+      hash |= nsm[j] != 0.0f || __float_as_uint(o[j]) == 0x80000000u;
+    }
+    if (++col == D) {
+      col = 0;
+      ++r;
+    }
+  }
+  if (noise_on && (hash || !Noise::kSkipZero)) {
+    float nz[kElts];
+    noise.fill((size_t)i0, cnt, vec, nz);
+#pragma unroll
+    for (int j = 0; j < kElts; ++j) {
+      if (j < cnt && (!Noise::kSkipZero || nsm[j] != 0.0f ||
+                      __float_as_uint(o[j]) == 0x80000000u))
+        o[j] = __fadd_rn(o[j], __fmul_rn(nsm[j], nz[j]));
+    }
+  }
+  store_elts(out, (size_t)i0, cnt, vec, o);
+}
+
+// Step 3a: partial[b, d] = sum of weights[c] * out[c, d] over the rows c
+// of block b (blockIdx.x), in ascending c.
+__global__ void __launch_bounds__(kThreads)
+    agg_partial_kernel(const float* __restrict__ out,
+                       const float* __restrict__ wgt,
+                       float* __restrict__ partial, int C, int D) {
+  const int d = blockIdx.y * kThreads + threadIdx.x;
+  if (d >= D) return;
   const int r0 = blockIdx.x * kRows;
   const int r1 = min(r0 + kRows, C);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int r = r0 + warp; r < r1; r += kWarps) {
-    float s = 1.0f;
-    if (clip > 0.0f) {
-      const float* row = u + (size_t)r * D;
-      float sq = 0.0f;
-      for (int d = lane; d < D; d += 32) sq = __fadd_rn(sq, __fmul_rn(row[d], row[d]));
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sq = __fadd_rn(sq, __shfl_xor_sync(0xffffffffu, sq, off));
-      s = __fdiv_rn(1.0f, fmaxf(1.0f, __fdiv_rn(__fsqrt_rn(sq), clip)));
-    }
-    if (lane == 0)
-      scale_s[r - r0] = __fadd_rn(1.0f, __fmul_rn(mask[r], __fsub_rn(s, 1.0f)));
-  }
-  __syncthreads();
-  if (r1 <= r0) return;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float acc = 0.0f;
-    for (int r = r0; r < r1; ++r) {
-      const size_t i = (size_t)r * D + d;
-      float o = __fmul_rn(u[i], scale_s[r - r0]);
-      if (noise_scale > 0.0f)
-        o = __fadd_rn(o, __fmul_rn(__fmul_rn(noise_scale, mask[r]), noise(i)));
-      out[i] = o;
-      // the sum starts from its first term: an all -0.0 column stays -0.0
-      const float term = __fmul_rn(o, wgt[r]);
-      acc = r == r0 ? term : __fadd_rn(acc, term);
-    }
-    partial[(size_t)blockIdx.x * D + d] = acc;
-  }
+  // the sum starts from its first term: an all -0.0 column stays -0.0
+  float acc = __fmul_rn(out[(size_t)r0 * D + d], wgt[r0]);
+#pragma unroll 8
+  for (int r = r0 + 1; r < r1; ++r)
+    acc = __fadd_rn(acc, __fmul_rn(out[(size_t)r * D + d], wgt[r]));
+  partial[(size_t)blockIdx.x * D + d] = acc;
 }
 
 // The counter stream itself, for checking it against the plain version:
@@ -174,19 +280,43 @@ __global__ void clip_noise_agg_kernel(const float* __restrict__ partial,
 
 int blocks_of(int C) { return (C + kRows - 1) / kRows; }
 
+// scale: scratch [C] when clip > 0; agg == nullptr: no agg (partial is
+// then unused)
 template <typename Noise>
-int launch_clip_noise(const float* u, Noise noise, const float* mask,
-                      const float* wgt, float* out, float* agg,
-                      float* partial, int C, int D, float clip,
-                      float noise_scale, cudaStream_t stream) {
-  const int nblk = blocks_of(C);
-  if (nblk > 0 && D > 0) {
-    clip_noise_rows_kernel<Noise><<<nblk, kThreads, 0, stream>>>(
-        u, noise, mask, wgt, out, partial, C, D, clip, noise_scale);
+int launch_clip_noise(const float* u, Noise noise, const void* operand,
+                      const float* mask, const float* wgt, float* out,
+                      float* agg, float* partial, float* scale, int C, int D,
+                      float clip, float noise_scale, cudaStream_t stream) {
+  const long long n = (long long)C * D;
+  if (n > 0) {
+    if (clip > 0.0f) {
+      row_scale_kernel<<<(C + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+          u, mask, scale, C, D, clip);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    const bool vec = (((uintptr_t)u | (uintptr_t)out | (uintptr_t)operand) &
+                      15) == 0;
+    const long long groups = (n + kElts - 1) / kElts;
+    const unsigned grid = (unsigned)((groups + kThreads - 1) / kThreads);
+    const float* sc = clip > 0.0f ? scale : nullptr;
+    if (n <= 0xffffffffLL)
+      clip_noise_elts_kernel<Noise, true><<<grid, kThreads, 0, stream>>>(
+          u, noise, mask, sc, out, n, D, noise_scale, vec);
+    else
+      clip_noise_elts_kernel<Noise, false><<<grid, kThreads, 0, stream>>>(
+          u, noise, mask, sc, out, n, D, noise_scale, vec);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  if (D == 0) return 0;
+  if (agg == nullptr || D == 0) return 0;
+  const int nblk = blocks_of(C);
+  if (nblk > 0) {
+    agg_partial_kernel<<<dim3(nblk, (D + kThreads - 1) / kThreads), kThreads,
+                         0, stream>>>(out, wgt, partial, C, D);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   clip_noise_agg_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       partial, agg, nblk, D);
   return (int)cudaGetLastError();
@@ -200,18 +330,20 @@ int dp_blocks(int C) { return blocks_of(C); }
 
 int dp_clip_noise(const float* u, const float* noise, const float* mask,
                   const float* wgt, float* out, float* agg, float* partial,
-                  int C, int D, float clip, float noise_scale,
+                  float* scale, int C, int D, float clip, float noise_scale,
                   cudaStream_t stream) {
-  return launch_clip_noise(u, OperandNoise{noise}, mask, wgt, out, agg,
-                           partial, C, D, clip, noise_scale, stream);
+  return launch_clip_noise(u, OperandNoise{noise}, noise, mask, wgt, out,
+                           agg, partial, scale, C, D, clip, noise_scale,
+                           stream);
 }
 
 int dp_clip_noise_prng(const float* u, uint32_t k0, uint32_t k1,
                        const float* mask, const float* wgt, float* out,
-                       float* agg, float* partial, int C, int D, float clip,
-                       float noise_scale, cudaStream_t stream) {
-  return launch_clip_noise(u, CounterNoise{k0, k1}, mask, wgt, out, agg,
-                           partial, C, D, clip, noise_scale, stream);
+                       float* agg, float* partial, float* scale, int C, int D,
+                       float clip, float noise_scale, cudaStream_t stream) {
+  return launch_clip_noise(u, CounterNoise{k0, k1}, nullptr, mask, wgt, out,
+                           agg, partial, scale, C, D, clip, noise_scale,
+                           stream);
 }
 
 int dp_prng_words(uint32_t k0, uint32_t k1, long long n, uint32_t* words0,

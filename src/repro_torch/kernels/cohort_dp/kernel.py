@@ -9,11 +9,11 @@ Replace the reference's Pallas kernels of
   (noise generated in the kernel from a counter-based threefry stream
   keyed by the tick's noise key).
 
-Per-row clip, Gaussian noise, weighted sum over clients; see the
-source's note for the design.  ``prng_words_probe`` returns the
-generator's raw words, so a check can hold the stream itself against
-``repro_torch.prng``; it is a probe, not a kernel of the engine's path,
-and is not counted.
+Per-row clip, Gaussian noise and, when ``with_agg`` is set, the
+weighted sum over clients; see the source's note for the design.
+``prng_words_probe`` returns the generator's raw words, so a check can
+hold the stream itself against ``repro_torch.prng``; it is a probe, not
+a kernel of the engine's path, and is not counted.
 """
 from __future__ import annotations
 
@@ -34,8 +34,8 @@ def _dp():
     if _lib is None:
         lib = _build.load("cohort_dp")
         lib.dp_blocks.argtypes = [_I]
-        lib.dp_clip_noise.argtypes = [_P] * 7 + [_I, _I, _F, _F, _P]
-        lib.dp_clip_noise_prng.argtypes = ([_P, _U, _U] + [_P] * 5
+        lib.dp_clip_noise.argtypes = [_P] * 8 + [_I, _I, _F, _F, _P]
+        lib.dp_clip_noise_prng.argtypes = ([_P, _U, _U] + [_P] * 6
                                            + [_I, _I, _F, _F, _P])
         lib.dp_prng_words.argtypes = [_U, _U, _LL, _P, _P, _P]
         for fn in (lib.dp_blocks, lib.dp_clip_noise, lib.dp_clip_noise_prng,
@@ -45,10 +45,28 @@ def _dp():
     return _lib
 
 
+def _buffers(lib, u, clip: float, with_agg: bool):
+    """out [C, D]; agg [D] and its row-block partials when asked for;
+    the row scales [C] when clip > 0.  Pointers are None where absent."""
+    C, D = u.shape
+    dev = u.device
+    out = torch.empty_like(u)
+    agg = partial = scale = None
+    if with_agg:
+        agg = torch.empty((D,), dtype=torch.float32, device=dev)
+        partial = torch.empty((lib.dp_blocks(C), D), dtype=torch.float32,
+                              device=dev)
+    if clip > 0.0:
+        scale = torch.empty((C,), dtype=torch.float32, device=dev)
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (out, agg, partial, scale)]
+    return out, agg, ptrs
+
+
 def cohort_clip_noise_kernel(u, noise, weights, mask, *, clip: float,
-                             noise_scale: float):
+                             noise_scale: float, with_agg: bool = True):
     """u [C, D] f32; noise [C, D] f32 (None when noise_scale <= 0);
-    weights, mask [C] f32 -> (out [C, D], agg [D])."""
+    weights, mask [C] f32 -> (out [C, D], agg [D] or None)."""
     C, D = u.shape
     dev = u.device
     _build.need(u, "u", torch.float32, (C, D), dev)
@@ -57,15 +75,11 @@ def cohort_clip_noise_kernel(u, noise, weights, mask, *, clip: float,
     _build.need(weights, "weights", torch.float32, (C,), dev)
     _build.need(mask, "mask", torch.float32, (C,), dev)
     lib = _dp()
-    out = torch.empty_like(u)
-    agg = torch.empty((D,), dtype=torch.float32, device=dev)
-    partial = torch.empty((lib.dp_blocks(C), D), dtype=torch.float32,
-                          device=dev)
+    out, agg, ptrs = _buffers(lib, u, clip, with_agg)
     _build.check(lib.dp_clip_noise(
         u.data_ptr(), noise.data_ptr() if noise_scale > 0.0 else None,
-        mask.data_ptr(), weights.data_ptr(), out.data_ptr(), agg.data_ptr(),
-        partial.data_ptr(), C, D, float(clip), float(noise_scale),
-        _build.stream(dev)), "cohort_clip_noise")
+        mask.data_ptr(), weights.data_ptr(), *ptrs, C, D, float(clip),
+        float(noise_scale), _build.stream(dev)), "cohort_clip_noise")
     LAUNCHES["cohort_clip_noise"] += 1
     return out, agg
 
@@ -80,10 +94,10 @@ def key_words(key):
 
 
 def cohort_clip_noise_prng_kernel(u, key, weights, mask, *, clip: float,
-                                  noise_scale: float):
+                                  noise_scale: float, with_agg: bool = True):
     """u [C, D] f32; key [2] CPU int64 (two uint32 words); weights, mask
-    [C] f32 -> (out [C, D], agg [D]), the normals generated in the
-    kernel from the counter stream of ``key``."""
+    [C] f32 -> (out [C, D], agg [D] or None), the normals generated in
+    the kernel from the counter stream of ``key``."""
     C, D = u.shape
     dev = u.device
     _build.need(u, "u", torch.float32, (C, D), dev)
@@ -91,14 +105,10 @@ def cohort_clip_noise_prng_kernel(u, key, weights, mask, *, clip: float,
     _build.need(mask, "mask", torch.float32, (C,), dev)
     k0, k1 = key_words(key)
     lib = _dp()
-    out = torch.empty_like(u)
-    agg = torch.empty((D,), dtype=torch.float32, device=dev)
-    partial = torch.empty((lib.dp_blocks(C), D), dtype=torch.float32,
-                          device=dev)
+    out, agg, ptrs = _buffers(lib, u, clip, with_agg)
     _build.check(lib.dp_clip_noise_prng(
-        u.data_ptr(), k0, k1, mask.data_ptr(), weights.data_ptr(),
-        out.data_ptr(), agg.data_ptr(), partial.data_ptr(), C, D,
-        float(clip), float(noise_scale), _build.stream(dev)),
+        u.data_ptr(), k0, k1, mask.data_ptr(), weights.data_ptr(), *ptrs,
+        C, D, float(clip), float(noise_scale), _build.stream(dev)),
         "cohort_clip_noise_prng")
     LAUNCHES["cohort_clip_noise_prng"] += 1
     return out, agg

@@ -18,30 +18,34 @@ from repro_torch.kernels.tick_fused.ops import on_cuda
 
 
 def cohort_clip_noise(u, noise, weights, mask, *, clip: float = 0.0,
-                      noise_scale: float = 0.0):
+                      noise_scale: float = 0.0, with_agg: bool = True):
     """u: (C, D) round updates -> (noised rows (C, D), weighted agg (D,)).
 
     clip <= 0 disables the per-row norm clip; noise_scale is the std-dev
     multiplier on the standard-normal ``noise`` (protocol: dp_clip *
-    dp_sigma), which may be None when noise_scale <= 0."""
+    dp_sigma), which may be None when noise_scale <= 0.  with_agg=False
+    skips the weighted sum: agg is None."""
     if not on_cuda(u):
         return cohort_clip_noise_ref(u, noise, weights, mask, clip=clip,
-                                     noise_scale=noise_scale)
+                                     noise_scale=noise_scale,
+                                     with_agg=with_agg)
     return cohort_clip_noise_kernel(
         u.contiguous(), None if noise_scale <= 0.0 else noise.contiguous(),
         weights.to(torch.float32), mask.to(torch.float32), clip=clip,
-        noise_scale=noise_scale)
+        noise_scale=noise_scale, with_agg=with_agg)
 
 
 def cohort_clip_noise_prng(u, key, weights, mask, *, clip: float = 0.0,
-                           noise_scale: float = 0.0):
+                           noise_scale: float = 0.0, with_agg: bool = True):
     """``cohort_clip_noise`` with the normals generated from ``key`` (one
     ``[2]`` key on the CPU: its words become kernel scalars) — on the
     card inside the kernel, on the CPU by the plain version, which
     reproduces the kernel's stream."""
     if not on_cuda(u):
         return cohort_clip_noise_prng_ref(u, key, weights, mask, clip=clip,
-                                          noise_scale=noise_scale)
+                                          noise_scale=noise_scale,
+                                          with_agg=with_agg)
     return cohort_clip_noise_prng_kernel(
         u.contiguous(), key, weights.to(torch.float32),
-        mask.to(torch.float32), clip=clip, noise_scale=noise_scale)
+        mask.to(torch.float32), clip=clip, noise_scale=noise_scale,
+        with_agg=with_agg)

@@ -15,7 +15,7 @@ _TWO_PI_F32 = 6.2831854820251465          # float32(2 * pi)
 
 
 def cohort_clip_noise_ref(u, noise, weights, mask, *, clip: float,
-                          noise_scale: float):
+                          noise_scale: float, with_agg: bool = True):
     """Batched round-completion DP over a client cohort.
 
     u:       (C, D) per-client round updates (flattened model dim)
@@ -27,7 +27,7 @@ def cohort_clip_noise_ref(u, noise, weights, mask, *, clip: float,
       out[c] = u[c] * min(1, clip/||u[c]||) + noise_scale * noise[c]
                for masked rows (clip <= 0 disables the row clip);
                pass-through rows return u[c] unchanged.
-      agg[d] = sum_c weights[c] * out[c, d]
+      agg[d] = sum_c weights[c] * out[c, d]   (None unless with_agg)
     """
     u = u.to(torch.float32)
     mask = mask.to(torch.float32)
@@ -40,6 +40,8 @@ def cohort_clip_noise_ref(u, noise, weights, mask, *, clip: float,
     out = u * scale[:, None]
     if noise_scale > 0.0:
         out = out + (noise_scale * mask)[:, None] * noise.to(torch.float32)
+    if not with_agg:
+        return out, None
     agg = torch.sum(out * weights.to(torch.float32)[:, None], dim=0)
     return out, agg
 
@@ -58,11 +60,11 @@ def counter_normals(key, C: int, D: int, device=None) -> torch.Tensor:
 
 
 def cohort_clip_noise_prng_ref(u, key, weights, mask, *, clip: float,
-                               noise_scale: float):
+                               noise_scale: float, with_agg: bool = True):
     """``cohort_clip_noise_ref`` with the normals of ``counter_normals``
     (drawn only when ``noise_scale > 0``); ``key`` is one CPU key."""
     C, D = u.shape
     noise = (counter_normals(key, C, D, device=u.device)
              if noise_scale > 0.0 else None)
     return cohort_clip_noise_ref(u, noise, weights, mask, clip=clip,
-                                 noise_scale=noise_scale)
+                                 noise_scale=noise_scale, with_agg=with_agg)

@@ -6,8 +6,9 @@ so the port reproduces jax's bits exactly, under jax's default
 ``jax_threefry_partitionable=True``:
 
 * a key is an int64 tensor ``[..., 2]`` holding two uint32 words;
-  ``PRNGKey(seed) == [seed >> 32, seed & 0xFFFFFFFF]``;
-* ``fold_in(key, d) == threefry2x32(key, (0, d))``;
+  ``PRNGKey(seed) == [0, seed & 0xFFFFFFFF]`` for any seed in the int64
+  range, as jax gives it under its default ``jax_enable_x64=False``;
+* ``fold_in(key, d) == threefry2x32(key, (0, d))``, ``d`` a uint32;
 * ``random_bits(key, shape)`` is ``x0 ^ x1`` of
   ``threefry2x32(key, (hi, lo))`` over the 64-bit flat index;
 * ``uniform`` fills the mantissa of a float in [1, 2) and shifts;
@@ -21,6 +22,7 @@ launches: keep scalar keys on the CPU and hand them to the draws.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple, Union
 
 import numpy as np
@@ -61,18 +63,29 @@ def threefry2x32(k0: Word, k1: Word, x0: Word, x1: Word) -> Tuple[Word, Word]:
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)`` for a non-negative integer seed."""
+    """``jax.random.PRNGKey(seed)`` -> ``[0, seed & 0xFFFFFFFF]``.
+
+    This is jax under ``jax_enable_x64=False``, its default and the
+    setting this mirror assumes (the port does not read jax's config):
+    the seed becomes an int64, then a 32-bit int, so the high word is 0
+    and a negative seed wraps.  Outside the int64 range jax raises
+    ``OverflowError``, and so does this."""
     seed = int(seed)
-    if seed < 0:
-        raise ValueError("the mirror covers non-negative seeds only")
-    return torch.tensor([(seed >> 32) & MASK32, seed & MASK32],
-                        dtype=torch.int64, device=device)
+    if not -2 ** 63 <= seed < 2 ** 63:
+        raise OverflowError(f"seed {seed} is outside the int64 range")
+    return torch.tensor([0, seed & MASK32], dtype=torch.int64,
+                        device=device)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` over a batch: ``key [..., 2]`` and integer
-    ``data`` (int or tensor) broadcast together -> keys ``[..., 2]``."""
+    ``data`` (int or tensor) broadcast together -> keys ``[..., 2]``.
+
+    A Python int outside ``[0, 2**32)`` raises ``OverflowError``, as jax
+    does; other data (tensors, numpy integers) is taken mod 2**32."""
     if not torch.is_tensor(data):
+        if isinstance(data, int) and not 0 <= data <= MASK32:
+            raise OverflowError(f"fold_in data {data} is outside uint32")
         data = torch.tensor(int(data), dtype=torch.int64, device=key.device)
     data = data.to(torch.int64) & MASK32
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], 0, data)
@@ -169,11 +182,23 @@ def cumsum_xla(x: torch.Tensor) -> torch.Tensor:
 
 def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0, device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``.
+
+    XLA computes ``f * (hi - lo) + lo`` as one fused multiply-add: one
+    rounding.  Where ``hi - lo`` (in f32, as jax takes it) is a power of
+    two, ``[0, 1)`` and ``normal``'s range among them, the f32 product is
+    exact and the f32 sum rounds once.  Otherwise the product (exact in
+    f64) and the sum are taken in f64 and rounded to f32; that differs
+    from one rounding only if the f64 sum lands exactly halfway between
+    two f32 values, which the tests' draws never do."""
     lo = torch.tensor(minval, dtype=torch.float32, device=device)
     hi = torch.tensor(maxval, dtype=torch.float32, device=device)
     f = _bits_to_unit(random_bits(key, shape, device=device))
-    return torch.maximum(lo, f * (hi - lo) + lo)
+    span = float(np.float32(maxval) - np.float32(minval))
+    if span == 0.0 or math.frexp(span)[0] in (0.5, -0.5):
+        return torch.maximum(lo, f * (hi - lo) + lo)
+    x = f.double() * float(span) + float(np.float32(minval))
+    return torch.maximum(lo, x.to(torch.float32))
 
 
 # XLA's f32 ErfInv (chlo_legalize_to_hlo: Giles' single-precision

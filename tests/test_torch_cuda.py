@@ -9,7 +9,9 @@ version's rounding, SUM_RTOL * sum|terms| where it reorders a sum over
 clients; ``bucket_apply`` also at FedAsync's ``A = R`` with decay
 weights != 1 and ``tick_scatter`` at its ``G = L * R``; the in-kernel
 noise's stream bit for bit and its rows within ROW_RTOL (CUDA's
-logf/cosf against PyTorch's log/cos); the slice on the card against
+logf/cosf against PyTorch's log/cos); both clip+noise kernels at ragged
+C * D with 0, half and all rows masked, signed zeros in pass-through
+rows and agg on or off; the slice on the card against
 the same slice on the CPU; and the model-scale kernels (DP clip,
 flash attention, SSD scan) against their plain versions at ragged
 shapes, f32 and bf16, within the reference suite's tolerances; the bf16
@@ -176,6 +178,60 @@ def test_in_kernel_noise_matches_plain_version(dev, C, D):
         assert _bits_equal(o[~mask], u[~mask])
     torch.cuda.synchronize()
     assert LAUNCHES["cohort_clip_noise_prng"] == 4
+
+
+@pytest.mark.parametrize("D", [1, 3, 785, 1024])
+@pytest.mark.parametrize("C", [1, 63, 65, 16385])
+def test_clip_noise_kernels_at_ragged_shapes_and_masked_shares(dev, C, D):
+    """Both clip+noise kernels against their plain versions at ragged
+    C * D, with 0, half and all rows masked, clip on and off, agg asked
+    for or not, and signed zeros in u: pass-through rows are the plain
+    version's bits (u, but -0.0 takes the sign of 0 * n); two launches
+    give the same bits; without agg, out is the same and agg None."""
+    from repro_torch import prng
+    from repro_torch.analysis.salts import NOISE_SALT
+    from repro_torch.kernels import LAUNCHES, reset
+    from repro_torch.kernels.cohort_dp import (cohort_clip_noise,
+                                               cohort_clip_noise_prng,
+                                               cohort_clip_noise_prng_ref,
+                                               cohort_clip_noise_ref,
+                                               counter_normals)
+    g = torch.Generator(device=dev).manual_seed(C * 31 + D)
+    key = prng.fold_in(prng.PRNGKey(2 ^ NOISE_SALT), 9)
+    u = 0.05 * torch.randn((C, D), generator=g, device=dev)
+    u[:, ::5] = -0.0
+    u[:, 1::5] = 0.0
+    n = counter_normals(key, C, D, device=dev)
+    noise = torch.randn((C, D), generator=g, device=dev)
+    ns = 0.8
+    reset()
+    for share in (0.0, 0.5, 1.0):
+        mask = torch.rand((C,), generator=g, device=dev) < share
+        wts = 0.1 * torch.rand((C,), generator=g, device=dev) * mask
+        for clip in (1.0, 0.0):
+            for fn, ref, nz in ((cohort_clip_noise_prng,
+                                 cohort_clip_noise_prng_ref, key),
+                                (cohort_clip_noise, cohort_clip_noise_ref,
+                                 noise)):
+                kw = dict(clip=clip, noise_scale=ns)
+                o, a = fn(u, nz, wts, mask, **kw)
+                o2, a2 = fn(u, nz, wts, mask, **kw)
+                o3, a3 = fn(u, nz, wts, mask, with_agg=False, **kw)
+                po, pa = ref(u, nz, wts, mask, **kw)
+                assert a3 is None
+                assert _bits_equal(o, o2) and _bits_equal(a, a2)
+                assert _bits_equal(o, o3)
+                assert _bits_equal(o[~mask], po[~mask])
+                if fn is cohort_clip_noise and clip == 0.0:
+                    assert _bits_equal(o, po)
+                dn = n if fn is cohort_clip_noise_prng else noise
+                row_tol = ROW_RTOL * (u.abs() + ns * dn.abs())
+                assert bool(((o - po).abs() <= row_tol).all())
+                agg_tol = SUM_RTOL * (wts.abs() @ po.abs())
+                assert bool(((a - pa).abs() <= agg_tol + 1e-30).all())
+    torch.cuda.synchronize()
+    assert LAUNCHES["cohort_clip_noise_prng"] == 18
+    assert LAUNCHES["cohort_clip_noise"] == 18
 
 
 @pytest.mark.parametrize("scenario,strategy,dp_rng", [

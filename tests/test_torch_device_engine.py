@@ -313,3 +313,44 @@ def test_overflow_exhaustion_stops_on_the_tick_like_the_reference():
     for f, a in want.items():
         if a.dtype == np.int32:
             assert np.array_equal(a, got[f]), f
+
+
+@pytest.mark.parametrize("dp_rng", ["operand", "in_kernel"])
+def test_engine_without_agg_is_bitwise_the_engine_with_it(dp_rng,
+                                                          monkeypatch):
+    """The engine asks the clip+noise kernels for no weighted sum: its run
+    (every state field, integers and floats, losses and model) is bit
+    for bit the run that has them compute and drop it."""
+    from repro_torch.cohort import device as dmod
+    cfg = _with(TAIL, strategy="fedasync", dp_rng=dp_rng)
+    calls = []
+
+    def run():
+        n, d, seed = cfg["data"]
+        X, y = make_binary_dataset(n, d, seed=seed, noise=0.3)
+        sim = DeviceCohortSimulator(LogRegTask(X, y, **cfg["task"]),
+                                    **_scenario(cfg["sim"], False),
+                                    device="cpu")
+        res = sim.run(max_rounds=cfg["rounds"], eval_every=cfg["eval_every"])
+        st = sim.engine.state
+        return ({f: _np(getattr(st, f)) for f in st._fields},
+                [h["loss"] for h in res["history"]])
+
+    def with_agg(fn):
+        def call(*a, **k):
+            calls.append(k.get("with_agg"))
+            out, agg = fn(*a, **dict(k, with_agg=True))
+            assert agg is not None
+            return out, agg
+        return call
+
+    got = run()
+    for name in ("cohort_clip_noise", "cohort_clip_noise_prng"):
+        monkeypatch.setattr(dmod, name, with_agg(getattr(dmod, name)))
+    want = run()
+    assert calls and set(calls) == {False}
+    for f, a in want[0].items():
+        assert a.dtype == got[0][f].dtype
+        assert np.array_equal(np.atleast_1d(a).view(np.uint8),
+                              np.atleast_1d(got[0][f]).view(np.uint8)), f
+    assert want[1] == got[1]

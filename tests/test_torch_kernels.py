@@ -304,3 +304,62 @@ def test_prng_normals_of_adjacent_ticks_are_uncorrelated():
     assert abs(float(np.corrcoef(a, b)[0, 1])) < 0.02
     # neighbouring elements of one draw too
     assert abs(float(np.corrcoef(a[:-1], a[1:])[0, 1])) < 0.02
+
+
+# --- with_agg=False and pass-through rows (both plain versions) -------------
+
+def _clip_noise_pair(prng_noise, u, key, noise, wts, mask, **kw):
+    if prng_noise:
+        return cohort_clip_noise_prng(u, key, wts, mask, **kw)
+    return cohort_clip_noise(u, noise, wts, mask, **kw)
+
+
+@pytest.mark.parametrize("prng_noise", [True, False])
+@pytest.mark.parametrize("clip,noise_scale", [(1.0, 0.8), (0.0, 0.8),
+                                              (1.0, 0.0)])
+def test_without_agg_out_is_bitwise_and_agg_is_none(prng_noise, clip,
+                                                     noise_scale):
+    rng = np.random.default_rng(8)
+    C, D = 11, 37
+    u = _t((0.3 * rng.normal(size=(C, D))).astype(np.float32))
+    noise = _t(rng.normal(size=(C, D)).astype(np.float32))
+    mask = _t(rng.random(C) < 0.5)
+    wts = _t((0.1 * rng.random(C)).astype(np.float32)) * mask
+    kw = dict(clip=clip, noise_scale=noise_scale)
+    o1, a1 = _clip_noise_pair(prng_noise, u, _tick_key(4), noise, wts, mask,
+                              **kw)
+    o2, a2 = _clip_noise_pair(prng_noise, u, _tick_key(4), noise, wts, mask,
+                              with_agg=False, **kw)
+    assert a1 is not None and tuple(a1.shape) == (D,)
+    assert a2 is None
+    _assert_bitwise(o1.numpy(), o2.numpy())
+
+
+@pytest.mark.parametrize("prng_noise", [True, False])
+def test_pass_through_rows_keep_u_and_signed_zeros_take_the_noise_sign(
+        prng_noise):
+    """A pass-through row is ``u * 1 + (noise_scale * 0) * n``: every
+    element is u's bits, except -0.0, which becomes -0.0 + (+0.0 * n):
+    +0.0 where n > 0, -0.0 where n < 0 (the oracle of the kernel's copy
+    of pass-through rows)."""
+    rng = np.random.default_rng(9)
+    C, D, ns = 6, 64, 0.8
+    u = (0.3 * rng.normal(size=(C, D))).astype(np.float32)
+    u[:, ::4] = -0.0
+    u[:, 1::4] = 0.0
+    mask = np.array([1, 0, 0, 1, 0, 1], np.float32)
+    key = _tick_key(6)
+    n = (counter_normals(key, C, D).numpy() if prng_noise
+         else rng.normal(size=(C, D)).astype(np.float32))
+    out, _ = _clip_noise_pair(prng_noise, _t(u), key, _t(n),
+                              _t(np.ones(C, np.float32)), _t(mask),
+                              clip=1.0, noise_scale=ns)
+    out = out.numpy()
+    pt = mask == 0
+    want = u[pt] + (np.float32(ns) * np.float32(0.0)) * n[pt]
+    _assert_bitwise(out[pt], want)
+    neg0 = _bits(u[pt]) == np.int32(-2 ** 31)
+    assert neg0.sum() == 3 * 16
+    assert (_bits(out[pt])[neg0] == np.where(n[pt][neg0] > 0, 0,
+                                             np.int32(-2 ** 31))).all()
+    _assert_bitwise(out[pt][~neg0], u[pt][~neg0])

@@ -29,10 +29,23 @@ def _ulps(a, b):
     return np.abs(a - b)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2, 21, 2 ^ NOISE_SALT, 2 ** 31 - 1])
+# past 32 bits and below 0, jax (jax_enable_x64=False) keeps the low
+# word with a zero high word
+@pytest.mark.parametrize("seed", [0, 1, 2, 21, 2 ^ NOISE_SALT, 2 ** 31 - 1,
+                                  2 ** 32, 2 ** 32 + 5, 2 ** 40 + 7,
+                                  12345678901, -1, -5, 2 ** 63 - 1,
+                                  -2 ** 63])
 def test_prng_key_bitwise(seed):
     assert (_np(jax.random.PRNGKey(seed))
             == prng.PRNGKey(seed).numpy()).all()
+
+
+@pytest.mark.parametrize("seed", [2 ** 64, 2 ** 63, -2 ** 63 - 1])
+def test_prng_key_outside_int64_raises_like_jax(seed):
+    with pytest.raises(OverflowError):
+        jax.random.PRNGKey(seed)
+    with pytest.raises(OverflowError):
+        prng.PRNGKey(seed)
 
 
 def test_noise_root_key_words():
@@ -47,6 +60,14 @@ def test_fold_in_scalar_bitwise(data):
     want = _np(jax.random.fold_in(k, np.uint32(data)))
     got = prng.fold_in(prng.PRNGKey(7), data).numpy()
     assert (want == got).all()
+
+
+@pytest.mark.parametrize("data", [-1, 2 ** 32, 2 ** 32 + 3])
+def test_fold_in_int_outside_uint32_raises_like_jax(data):
+    with pytest.raises(OverflowError):
+        jax.random.fold_in(jax.random.PRNGKey(7), data)
+    with pytest.raises(OverflowError):
+        prng.fold_in(prng.PRNGKey(7), data)
 
 
 def test_fold_in_batched_bitwise():
@@ -73,6 +94,19 @@ def test_bits_and_uniform_bitwise(shape):
     u2 = np.asarray(jax.random.uniform(k, shape, minval=lo, maxval=1.0))
     assert (_ulps(u2, prng.uniform(tk, shape, float(lo), 1.0).numpy())
             == 0).all()
+
+
+@pytest.mark.parametrize("lo,hi", [(-2.0, 3.0), (0.1, 0.3), (1.0, 5.0),
+                                   (0.0, 1.0), (-1e-3, 7.5)])
+def test_uniform_on_a_range_bitwise(lo, hi):
+    """``f * (hi - lo) + lo`` rounds once, as XLA's fused multiply-add:
+    over 100000 draws every bit agrees."""
+    n = 100_000
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(3), (n,),
+                                         minval=lo, maxval=hi))
+    got = prng.uniform(prng.PRNGKey(3), (n,), lo, hi).numpy()
+    assert got.dtype == np.float32
+    assert (_ulps(want, got) == 0).all()
 
 
 @pytest.mark.parametrize("tick", [1, 2, 17, 1000])
@@ -167,3 +201,44 @@ def test_split_chain_bitwise():
         assert (_np(sub) == tsub.numpy()).all()
         u = np.asarray(jax.random.uniform(sub[1], (17,)))
         assert (_ulps(u, prng.uniform(tsub[1], (17,)).numpy()) == 0).all()
+
+
+SEED_PAST_32_BITS = 2 ** 32 + 5
+
+
+@pytest.mark.parametrize("name", ["mobile_diurnal", "iot_straggler",
+                                  "sensor_renewal"])
+def test_streams_at_a_seed_past_32_bits(name):
+    """Seed 2**32 + 5 keys every stream by its low word, as the
+    reference does: the scenario plan's table ids, update and broadcast
+    ticks and availability masks, and the device engine's DP noise key
+    chain."""
+    from repro import scenarios as J
+    from repro.scenarios import registry as jreg
+    from repro_torch import scenarios as T
+    from repro_torch.cohort import DeviceCohortSimulator
+    seed, C = SEED_PAST_32_BITS, 64
+    jp = jreg.ScenarioPlan(J.get_scenario(name), C=C, seed=seed, dt=0.7)
+    tp = T.ScenarioPlan(T.get_scenario(name), C=C, seed=seed, dt=0.7,
+                        device="cpu")
+    assert np.array_equal(jp.table_id, tp.table_id)
+    for r in (0, 3):
+        i = np.full(C, r, np.int32)
+        assert np.array_equal(jp.host_update_ticks(i),
+                              tp.update_ticks(torch.as_tensor(i)).numpy())
+    for k in (0, 7):
+        assert np.array_equal(jp.host_broadcast_ticks(k),
+                              tp.broadcast_ticks(k).numpy())
+    if jp.avail_mask is not None:
+        for t in (0, 500, 2049):
+            assert np.array_equal(jp.host_avail(t), tp.avail_mask(t).numpy())
+    X = np.zeros((40, 3), np.float32)
+    sim = DeviceCohortSimulator(
+        LogRegTask(X, np.zeros(40, np.float32), dp_clip=0.1, dp_sigma=1.0),
+        n_clients=4, sizes_per_client=[2, 2], round_stepsizes=[0.1, 0.1],
+        d=1, seed=seed, device="cpu")
+    base = jax.random.PRNGKey(seed ^ NOISE_SALT)
+    assert (_np(base) == sim.engine._noise_base.numpy()).all()
+    for t in (1, 17):
+        assert (_np(jax.random.fold_in(base, t))
+                == prng.fold_in(sim.engine._noise_base, t).numpy()).all()
