@@ -32,10 +32,14 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    port's plain CPU run, with both noise sources;
 6. the model-scale kernels (``clip_accumulate``, ``flash_attention``,
    ``ssd_scan``) against their plain versions at the shapes of the three
-   paths below and at ragged edge shapes, f32 and bf16; for the bf16
-   ``flash_attention`` (tensor cores) also its ptxas report, the count
-   of HGMMA instructions in the library (none fails), its edge shapes
-   and its time against the tensor cores' bound;
+   paths below and at ragged edge shapes (the f32 attention kernel's and
+   the chunk-parallel SSD's tile edges among them), f32 and bf16; the
+   ptxas report of both attention kernels (the f32 one at hd 256 may not
+   spill) and of the four SSD kernels; for the bf16 ``flash_attention``
+   (tensor cores) also the count of HGMMA instructions in the library
+   (none fails), its edge shapes and its time against the tensor cores'
+   bound; planted faults that the limits must catch (a dropped kv tile
+   in bf16 attention, the carry dropped from the SSD's last chunk);
 7. ``dp_round``: the example-level DP-SGD round (``dp_sgd_round``) on
    the main run's data (D = 785) with its DP knobs, whole and in 10
    microbatches, card against CPU;
@@ -44,7 +48,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    against the reference's dense core on the card;
 9. ``ssm_layer``: one mamba2-780m mixer at full width (B = 4, S =
    2048), through the kernel against the plain chunked SSD on the card,
-   with and without the final state.
+   with and without the final state; its warm wall through the kernel
+   must be below its wall through the plain SSD.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -901,11 +906,15 @@ def attn_flops(B: int, S: int, H: int, hd: int, window) -> float:
 
 
 def ssd_flops(b: int, s: int, h: int, p: int, n: int, Q: int) -> float:
-    """Per chunk of Q steps: C B^T and the diagonal block product over
-    the Q (Q + 1) / 2 causal pairs, the off-diagonal term C H and the
-    state update B^T x (2 flops per multiply-add)."""
+    """Per (batch, chunk of Q steps): C B^T over the Q (Q + 1) / 2 causal
+    pairs, once (B and C have one group: the same for every head); per
+    (batch, chunk, head): the diagonal block product over those pairs,
+    the off-diagonal term C H and the state update B^T x (2 flops per
+    multiply-add)."""
     pairs = Q * (Q + 1) // 2
-    return b * h * (-(-s // Q)) * (2.0 * pairs * (n + p) + 4.0 * Q * n * p)
+    nc = -(-s // Q)
+    return b * nc * (2.0 * pairs * n
+                     + h * (2.0 * pairs * p + 4.0 * Q * n * p))
 
 
 def rel_err(out, ref) -> float:
@@ -975,6 +984,34 @@ def planted_tile_drop(q, k, v, **kw):
     return rel_l2(faulty, attention_ref(q, k, v, **kw))
 
 
+def planted_carry_drop(x, dt, A, B, C, chunk):
+    """rel_err against ssd_chunked of a planted fault: the kernel's y with
+    its last chunk replaced by ssd_chunked of that chunk alone from a
+    zero state (the carry across chunks dropped)."""
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    t0 = (x.shape[1] - 1) // chunk * chunk
+    faulty = ssd_scan(x, dt, A, B, C, chunk)[0].clone()
+    faulty[:, t0:] = ssd_chunked(x[:, t0:], dt[:, t0:], A, B[:, t0:],
+                                 C[:, t0:], chunk)[0]
+    return rel_err(faulty, ssd_chunked(x, dt, A, B, C, chunk)[0])
+
+
+def ssd_phase_ms(x, dt, A, B, C, chunk):
+    """Median time of each of the SSD's four kernels alone, on the
+    workspaces of one whole launch (not counted: a breakdown of the
+    kernel's time)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import kernel as ssd_k
+    ops = ssd_k._operands(x, dt, A, B, C, chunk, None)
+    b, s, h, p, n, _, _ = ops[-1]
+    ws = ssd_k._workspaces(ops[-1], x.device)
+    y = torch.empty((b, s, h, p), dtype=ops[0].dtype, device=x.device)
+    final = torch.empty((b, h, n, p), device=x.device)
+    ssd_k._run(ops, ws, y, final, sum(ssd_k.PHASES.values()))
+    return {name: median_ms(lambda: ssd_k._run(ops, ws, y, final, mask))
+            for name, mask in ssd_k.PHASES.items()}
+
+
 def check_ssd(x, dt, A, B, C, chunk, what, h0=None):
     """ssd_scan (the kernel on the card) against ssd_chunked: y and the
     final state within SSD_TOL of max |ref|; returns (y err, state err)."""
@@ -994,18 +1031,28 @@ def check_ssd(x, dt, A, B, C, chunk, what, h0=None):
 
 def ptxas_report(log: str, kernel: str):
     """The ptxas lines (registers, spills) of every instantiation of
-    ``kernel`` in an nvcc ``-Xptxas=-v`` log."""
+    ``kernel`` in an nvcc ``-Xptxas=-v`` log, each as (instantiation,
+    line), e.g. ``fa_f32_kernel<256>`` or ``ssd_cb_kernel<bf16>``."""
     import re
+    args = {"f": "f32", "13__nv_bfloat16": "bf16"}
     out, take = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             take = None
-            if kernel in line:
-                arg = re.search(kernel + r"ILi(\d+)E", line)
-                take = f"{kernel}<{arg.group(1) if arg else ''}>"
+            m = re.search(re.escape(kernel) + r"(?:I(?:Li(\d+)|(f|13__nv_bfloat16))E)?", line)
+            if m:
+                arg = m.group(1) or args.get(m.group(2) or "", "")
+                take = f"{kernel}<{arg}>" if arg else kernel
         elif take and ("Used" in line or "spill" in line):
-            out.append(f"{take}: {line.strip()}")
+            out.append((take, line.strip()))
     return out
+
+
+def spill_bytes(report) -> int:
+    """Spill stores and loads, in bytes, summed over ptxas_report lines."""
+    import re
+    return sum(int(v) for _, line in report
+               for v in re.findall(r"(\d+) bytes spill (?:stores|loads)", line))
 
 
 def hgmma_count(name: str):
@@ -1023,11 +1070,11 @@ def hgmma_count(name: str):
     return sum("HGMMA" in line for line in sass.splitlines())
 
 
-def phase_model_kernels(dev, G, fa_log):
+def phase_model_kernels(dev, G, logs):
     """Phase 6: the model-scale kernels against their plain versions at
     the paths' shapes (``G``: the DP round's per-example gradients) and
-    at ragged edge shapes; returns their JSON entries.  ``fa_log``: the
-    nvcc log of ``flash_attention.cu`` (empty if it was cached)."""
+    at ragged edge shapes; returns their JSON entries.  ``logs``: the
+    nvcc logs of the sources built by this run (``build_all``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import fl_config_fig1b
@@ -1080,11 +1127,16 @@ def phase_model_kernels(dev, G, fa_log):
                     bound_by=by, library_ms=None))
 
     # -- flash_attention at gemma2-2b's layer ------------------------------
-    # bf16 runs on the tensor cores (wgmma): its registers / spills, and
-    # the wgmma instructions in the built library
-    for line in ptxas_report(fa_log, "fa_bf16_kernel") or [
-            "(library cached: no ptxas report)"]:
-        print(f"phase model_kernels: flash_attention bf16 ptxas: {line}")
+    # the registers / spills of both kernels (f32: none may spill), and the
+    # wgmma instructions of the bf16 one (tensor cores) in the library
+    fa_log = logs.get("flash_attention", "")
+    f32_rep = ptxas_report(fa_log, "fa_f32_kernel")
+    for take, line in (f32_rep + ptxas_report(fa_log, "fa_bf16_kernel")
+                       or [("flash_attention", "(library cached: no ptxas "
+                                               "report)")]):
+        print(f"phase model_kernels: flash_attention ptxas: {take}: {line}")
+    if spill_bytes([r for r in f32_rep if r[0] == "fa_f32_kernel<256>"]):
+        fail("flash_attention: the f32 kernel at hd 256 spills registers")
     n_hgmma = hgmma_count("flash_attention")
     if n_hgmma is None:
         print("phase model_kernels: flash_attention: cuobjdump missing, "
@@ -1169,6 +1221,16 @@ def phase_model_kernels(dev, G, fa_log):
     edges = [
         check_attention(*(randn(2, 200, h, 64) for h in (4, 2, 2)),
                         "non-causal S=200", causal=False),
+        # the f32 kernel's tiles: 64-row q tiles, 256-key kv tiles
+        check_attention(*(randn(1, 63, h, 8) for h in (4, 2, 2)),
+                        "S=63 hd=8"),
+        check_attention(*(randn(1, 65, h, 100) for h in (2, 1, 1)),
+                        "S=65 hd=100 KV=1 softcap 50", softcap=50.0),
+        check_attention(*(randn(2, 255, h, 256) for h in (4, 1, 1)),
+                        "S=255 hd=256 KV=1 window 100", window=100),
+        check_attention(*(randn(1, 257, h, 256) for h in (4, 2, 2)),
+                        "S=257 hd=256 window 9 softcap 30", window=9,
+                        softcap=30.0),
         check_attention(*(randn(2, 200, h, 64).to(bf16) for h in (4, 2, 2)),
                         "non-causal S=200 bf16", causal=False),
         check_attention(*(randn(1, 130, h, 128) for h in (4, 1, 1)),
@@ -1197,15 +1259,22 @@ def phase_model_kernels(dev, G, fa_log):
     out.append(entry)
 
     # -- ssd_scan at mamba2-780m's mixer -----------------------------------
+    ssd_log = logs.get("ssd_scan", "")
+    for kern in ("ssd_cb_kernel", "ssd_chunk_state_kernel",
+                 "ssd_state_passing_kernel", "ssd_chunk_scan_kernel"):
+        for take, line in ptxas_report(ssd_log, kern) or [
+                (kern, "(library cached: no ptxas report)")]:
+            print(f"phase model_kernels: ssd_scan ptxas: {take}: {line}")
     cfg = layer_cfg("mamba2_780m")
     b, s = SSM["B"], SSM["S"]
     h, p, n, Q = (cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state,
                   cfg.ssm_chunk)
 
-    def ssd_inputs(b, s, h, p, n, dt):
+    def ssd_inputs(b, s, h, p, n, dt, a=None):
         x = randn(b, s, h, p).to(dt)
         dts = F.softplus(randn(b, s, h))
-        A = -torch.exp(0.1 * randn(h))
+        A = -torch.exp(0.1 * randn(h)) if a is None \
+            else torch.full((h,), a, device=dev)
         return x, dts, A, randn(b, s, n).to(dt), randn(b, s, n).to(dt)
 
     for dt in (f32, bf16):
@@ -1221,13 +1290,22 @@ def phase_model_kernels(dev, G, fa_log):
         print(f"phase model_kernels: ssd_scan {dt} b={b} s={s} h={h} p={p} "
               f"n={n} chunk={Q} ms={ms} flops={fl} bound_ms={bms} ({by}) "
               f"bytes_ms={1e3 * nbytes / HBM_BYTES_PER_S} y_rel_err={ey} "
-              f"state_rel_err={ef}")
+              f"state_rel_err={ef} phases_ms={ssd_phase_ms(*args, Q)}")
         if dt == f32:
             pms = median_ms(lambda: ssd_chunked(*args, Q), n=3, reps=3)
             y1, f1 = ssd_scan(*args, Q)
             yr, fr = ssd_chunked(*args, Q)
             err = max(float((y1 - yr).abs().max()),
                       float((f1 - fr).abs().max()))
+            # SSD_TOL must catch the carry across chunks dropped in the
+            # last chunk
+            planted = planted_carry_drop(*args, Q)
+            print(f"phase model_kernels: ssd_scan {dt} planted fault (last "
+                  f"chunk without the carry): y_rel_err={planted} (limit "
+                  f"{SSD_TOL['float32']})")
+            if not planted > SSD_TOL["float32"]:
+                fail("ssd_scan: SSD_TOL passes the carry dropped from the "
+                     "last chunk")
             out.append(dict(name="ssd_scan", route="cuda",
                             source="src/repro_torch/csrc/ssd_scan.cu",
                             replaces="src/repro/kernels/ssd_scan/kernel.py:68",
@@ -1240,6 +1318,14 @@ def phase_model_kernels(dev, G, fa_log):
         check_ssd(*ssd_inputs(2, 130, 3, 64, 128, f32), 128,
                   "s=130 initial state", h0=randn(2, 3, 128, 64)),
         check_ssd(*ssd_inputs(1, 50, 2, 64, 12, f32), 128, "s=50 < chunk"),
+        # the chunk-parallel kernels: mamba2's heads at 2 chunks + 1, one
+        # chunk, p = 32, decay underflowing to 0
+        check_ssd(*ssd_inputs(1, 257, 48, 64, 128, f32), 128,
+                  "h=48 s=257 initial state", h0=randn(1, 48, 128, 64)),
+        check_ssd(*ssd_inputs(2, 128, 4, 32, 128, bf16), 128,
+                  "bf16 nc=1 p=32"),
+        check_ssd(*ssd_inputs(1, 300, 3, 64, 128, f32, a=-8.0), 128,
+                  "A=-8 s=300"),
     ]
     print(f"phase model_kernels: ssd_scan edges (y, state) rel errors "
           f"{edges}")
@@ -1418,6 +1504,11 @@ def phase_ssm_layer(dev):
               f"chunk={cfg.ssm_chunk} walls_s={walls} "
               f"plain_ssd_walls_s={pwalls} "
               f"rel_errs(out, final, conv)={errs}")
+        # the mixer must be faster through the kernel than through the
+        # plain SSD (warm calls: the first carries the one-time set-up)
+        if not min(walls[1:]) < min(pwalls[1:]):
+            fail(f"{what}: warm wall {min(walls[1:])} s through the kernel, "
+                 f"{min(pwalls[1:])} s through the plain SSD")
     return dict(launches.LAUNCHES)
 
 
@@ -1476,7 +1567,7 @@ def main() -> int:
     ssm_counts = phase_ssm_layer(dev)
     print(f"phase ssm_layer: wall_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
-    kernels += phase_model_kernels(dev, G, logs.get("flash_attention", ""))
+    kernels += phase_model_kernels(dev, G, logs)
     print(f"phase model_kernels: wall_s={time.perf_counter() - t0}")
     # launches: each kernel's count from the path that runs it: the main
     # run for the four main-path kernels, the scenario runs (in-kernel

@@ -14,13 +14,10 @@
 // (q, k, v read once, o written once) by ~70x: operations.  Two kernels,
 // one per dtype:
 //
-// * f32 (flash_attention_kernel) runs the products on the f32 pipes (no
-//   tensor core takes f32 operands without rounding them).  One block per
-//   (b, h, q tile of kBQ rows); the tile, pre-scaled by 1/sqrt(hd) as the
-//   TPU kernel does, stays in shared memory while K/V tiles of kBK rows
-//   stream through shared memory; each thread holds a 4 x 4 patch of the
-//   score tile and a 4 x hd/16 patch of the output accumulator in
-//   registers, and the running (max, sum) per row live in shared memory.
+// * f32 (f32::fa_f32_kernel) runs the products on the f32 pipes (no
+//   tensor core takes f32 operands without rounding them): register tiles
+//   of 8 x 8 scores and 8 x hd/32 outputs per thread, K and V streamed in
+//   slabs by asynchronous copies; see the note above it.
 // * bf16 (tc::fa_bf16_kernel) runs both products on the tensor cores with
 //   wgmma; see the note above it.
 //
@@ -35,11 +32,13 @@
 // valid key has alpha = exp(-1e30 - m) = 0 and wipes that row's sums.
 //
 // Rounding: the f32 dot products use explicit fused multiply-adds;
-// softcap uses the precise tanhf, exponentials the precise expf (no fast
-// math, built with -fmad=false).  The f32 result differs from the plain
-// version (kernels/flash_attention/ref.py) in the scaling order (q is
-// scaled, not the scores) and the add order of the sums; the bf16 one
-// also in p, rounded to bf16 before P V.
+// softcap uses the precise tanhf after a product with 1/softcap,
+// exponentials the precise expf (no fast math, built with -fmad=false).
+// The f32 result differs from the plain version
+// (kernels/flash_attention/ref.py) in the scaling order (q is scaled, not
+// the scores), s * (1/softcap) for s / softcap, and the add order of the
+// sums; the bf16 one also in p, rounded to bf16 before P V.  No atomics:
+// two launches give the same bits.
 //
 // The extern "C" entry points launch on the caller's stream and return
 // cudaGetLastError(); the Python wrapper raises if it is not 0.
@@ -51,69 +50,142 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // keys per streamed tile
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kWarps = kThreads / 32;
 constexpr float kMaskValue = -1e30f;
-constexpr int kPS = kBK + 4;   // score tile row stride (16-byte aligned)
-// the thread layout covers 64 x 64 score tiles: 16 x 16 threads, 4 x 4 each
-static_assert(kBQ == 64 && kBK == 64 && kThreads == 256, "tile layout");
 
-__device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ void store(float* p, size_t i, float v) { p[i] = v; }
+// ---- f32: the SIMT kernel ------------------------------------------------
+//
+// What bounds it is the f32 pipes: 128 FMAs per clock per SM, against 128
+// bytes per clock of shared memory, so a product whose operands come from
+// shared memory needs at least 4 FMAs per 4-byte load.  Design:
+//
+// * One block of 8 warps per (b, h, q tile of kBQ = 64 rows); blocks walk
+//   the q tiles heaviest first (blockIdx.y reversed, heads fastest).  Warp
+//   w owns rows 8w .. 8w + 7 of the tile, in both products.
+// * kv tiles of kBK = 256 keys.  Q . K^T: each thread holds an 8 x 8
+//   register tile of scores (its warp's 8 rows, keys lane + 32 c): per 4
+//   steps of d, 8 float4 of q (the same for the whole warp: broadcasts)
+//   and 8 float4 of k feed 256 FMAs.  The Q tile (pre-scaled by 1/sqrt(hd),
+//   as the TPU kernel does) stays in shared memory, row-major; K streams
+//   through in slabs of 32 columns of d (256 keys x 32, rows padded to 36
+//   floats so a quarter-warp's float4 reads hit 8 distinct bank groups).
+// * The online softmax runs on the register tile: a row's 256 scores lie
+//   in one warp, so its max reduces with five __shfl_xor_sync; the row sum
+//   l is kept per lane and reduced once at the end.  Softcap multiplies by
+//   a precomputed 1/softcap before the precise tanhf (no divide per score).
+//   P goes through shared memory once, key-major (P^T, rows padded to 68
+//   floats): conflict-free float4 writes, broadcast float4 reads.
+// * P . V: each thread holds an 8 x (hd / 32) register tile of O (8 x 8 at
+//   hd 256): per key, 2 float4 of p (broadcast) and 2 float4 of v feed 64
+//   FMAs.  V streams through in slabs of 32 keys x hd.  V slabs wholly
+//   past the causal frontier or S are skipped: every row of the tile has
+//   seen a valid key by then, so their p are exactly 0.
+// * K and V slabs (36 KB each) pass through a two-stage ring of 16-byte
+//   cp.async copies (4-byte copies, also zero-filling, where hd % 4 != 0
+//   or a pointer is not 16-byte aligned): the next slab is in flight while
+//   the current one is multiplied, with one __syncthreads per slab.
+//   Rows >= S and columns >= hd are zero-filled in shared memory, never
+//   padded in device memory.
+// * At hd 256: 204 KB of shared memory (Q 64 KB, the ring 72 KB, P^T 68
+//   KB), one block of 8 warps per SM.
 
-// rows x hdp tile of x[b, r0 + r, head, :] into s (row stride ld), scaled,
-// zero beyond S and hd
-template <typename T>
-__device__ void load_tile(float* s, int ld, int rows, const T* __restrict__ x,
-                          int b, int r0, int head, int S, int nh, int hd,
-                          int hdp, float scale) {
-  for (int e = threadIdx.x; e < rows * hdp; e += kThreads) {
-    const int r = e / hdp, d = e % hdp;
-    const int row = r0 + r;
-    float v = 0.0f;
-    if (row < S && d < hd)
-      v = load(x, (((size_t)b * S + row) * nh + head) * hd + d);
-    s[r * ld + d] = scale == 1.0f ? v : __fmul_rn(v, scale);
+namespace f32 {
+
+constexpr int kBQ = 64;           // query rows per block
+constexpr int kBK = 256;          // keys per kv tile
+constexpr int kThreads = 256;     // 8 warps of kR rows each
+constexpr int kR = 8;             // rows per thread (its warp's)
+constexpr int kC = kBK / 32;      // keys per thread: lane + 32 c
+constexpr int kSlab = 32;         // d columns per K slab, keys per V slab
+constexpr int kKS = kSlab + 4;    // K slab row stride (floats)
+constexpr int kPS = kBQ + 4;      // P^T row stride (floats)
+static_assert(kBQ == 8 * kR && kThreads == 32 * kBQ / kR, "warp per 8 rows");
+
+template <int HDP>
+__host__ __device__ constexpr int stage_floats() {
+  return kBK * kKS > kSlab * HDP ? kBK * kKS : kSlab * HDP;
+}
+
+template <int HDP>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         ((size_t)kBQ * HDP + 2 * (size_t)stage_floats<HDP>() +
+          (size_t)kBK * kPS);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows x COLS block x[b, r0 + r, head, c0 + c] into dst (row stride ld)
+// by cp.async; zero where r0 + r >= S or c0 + c >= hd.  vec: 16-byte
+// copies (hd % 4 == 0, 16-byte aligned base), else 4-byte ones.
+template <int COLS>
+__device__ __forceinline__ void copy_block(float* dst, int ld, int rows,
+                                           const float* __restrict__ x,
+                                           int b, int r0, int head, int c0,
+                                           int S, int nh, int hd, bool vec) {
+  constexpr int CH = COLS / 4;  // 16-byte chunks per row
+  for (int e = threadIdx.x; e < rows * CH; e += kThreads) {
+    const int r = e / CH, c = 4 * (e % CH);
+    const int row = r0 + r, col = c0 + c;
+    const float* src =
+        x + (((size_t)b * S + (row < S ? row : 0)) * nh + head) * (size_t)hd;
+    float* d = dst + r * ld + c;
+    if (vec) {
+      const bool in = row < S && col < hd;
+      cp_async16(d, src + (in ? col : 0), in);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const bool in = row < S && col + k < hd;
+        cp_async4(d + k, src + (in ? col + k : 0), in);
+      }
+    }
   }
 }
 
-template <typename T, int HDP>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int S,
-                       int H, int KV, int hd, float scale, int causal,
-                       int window, float softcap) {
-  constexpr int QS = HDP + 4;          // q / k tile row stride
-  constexpr int NC = HDP / 64;         // float4 column groups per thread
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kBQ * QS;
-  float* Vs = Ks + kBK * QS;
-  float* Ps = Vs + kBK * HDP;
-  float* m_s = Ps + kBQ * kPS;
-  float* l_s = m_s + kBQ;
-  float* a_s = l_s + kBQ;
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int S,
+              int H, int KV, int hd, float scale, int causal, int window,
+              float softcap, int vec) {
+  constexpr int NK = HDP / kSlab;       // K slabs per kv tile
+  constexpr int NCOL = HDP / 32;        // output columns per thread
+  constexpr int VW = NCOL < 4 ? NCOL : 4;  // floats per V read
+  constexpr int NJ = NCOL / VW;         // columns VW lane + 32 VW j + e
+  constexpr int STAGE = stage_floats<HDP>();
+  extern __shared__ float4 fa32_smem[];
+  float* Qs = reinterpret_cast<float*>(fa32_smem);  // kBQ x HDP
+  float* ring = Qs + kBQ * HDP;                      // 2 x STAGE
+  float* Pt = ring + 2 * STAGE;                      // kBK x kPS
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
   const int g = h / (H / KV);
   const int q0 = qt * kBQ;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  load_tile(Qs, QS, kBQ, q, b, q0, h, S, H, hd, HDP, scale);
-  for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-    m_s[r] = kMaskValue;
-    l_s[r] = 0.0f;
-  }
-  float acc[4][NC][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  const int lane = threadIdx.x % 32;
+  const int r0 = (threadIdx.x / 32) * kR;  // the thread's rows r0 .. r0 + 7
+  const int rowb = q0 + r0;
+  const bool v16 = vec != 0;
+  const float inv_cap = softcap > 0.0f ? __fdiv_rn(1.0f, softcap) : 0.0f;
 
   // live kv tiles [lo, hi): the TPU kernel's bounds (kernel.py:47-55)
   const int nkv = (S + kBK - 1) / kBK;
@@ -124,175 +196,249 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lo = (q0 - window - kBK + 1) / kBK;  // truncates toward zero
     if (lo < 0) lo = 0;
   }
+  // keys >= kend are masked in every row of the tile
+  const int kend = causal ? min(S, q0 + kBQ) : S;
 
+  // slab idx of kv tile kt into stage st: K columns [32 idx, 32 idx + 32)
+  // for idx < NK, else V keys [32 (idx - NK), + 32) of the tile
+  auto fetch = [&](int kt, int idx, int st) {
+    float* buf = ring + st * STAGE;
+    if (idx < NK)
+      copy_block<kSlab>(buf, kKS, kBK, k, b, kt * kBK, g, idx * kSlab, S,
+                        KV, hd, v16);
+    else
+      copy_block<HDP>(buf, HDP, kSlab, v, b, kt * kBK + (idx - NK) * kSlab,
+                      g, 0, S, KV, hd, v16);
+    cp_async_commit();
+  };
+  auto slabs = [&](int kt) {
+    return NK + (min(kend - kt * kBK, kBK) + kSlab - 1) / kSlab;
+  };
+  fetch(lo, 0, 0);
+
+  // the Q tile, scaled (once per block, while the first slab is in flight)
+  for (int e = threadIdx.x; e < kBQ * HDP; e += kThreads) {
+    const int r = e / HDP, d = e % HDP, row = q0 + r;
+    float x = 0.0f;
+    if (row < S && d < hd)
+      x = __fmul_rn(q[(((size_t)b * S + row) * H + h) * hd + d], scale);
+    Qs[e] = x;
+  }
+
+  float acc[kR][NCOL];
+  float s[kR][kC];
+  float m[kR], l[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    m[r] = kMaskValue;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c) acc[r][c] = 0.0f;
+  }
+
+  int st = 0;
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile(Ks, QS, kBK, k, b, k0, g, S, KV, hd, HDP, 1.0f);
-    load_tile(Vs, HDP, kBK, v, b, k0, g, S, KV, hd, HDP, 1.0f);
-    __syncthreads();
-
-    // scores: rows ty + 16 i, keys tx + 16 j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-    for (int d = 0; d < HDP; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * QS + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * QS + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = s[i][j];
-          a = __fmaf_rn(qv[i].x, kv[j].x, a);
-          a = __fmaf_rn(qv[i].y, kv[j].y, a);
-          a = __fmaf_rn(qv[i].z, kv[j].z, a);
-          a = __fmaf_rn(qv[i].w, kv[j].w, a);
-          s[i][j] = a;
+    const int ns = slabs(kt);
+    for (int idx = 0; idx < ns; ++idx) {
+      // slab idx has landed for every thread, and every thread is done
+      // with the stage the next copies overwrite (and, at the first V slab,
+      // has written its P^T rows)
+      cp_async_wait_all();
+      __syncthreads();
+      {
+        int nkt = kt, nidx = idx + 1;
+        if (nidx == ns) {
+          ++nkt;
+          nidx = 0;
         }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = q0 + ty + 16 * i, col = k0 + tx + 16 * j;
-        float x = s[i][j];
-        if (softcap > 0.0f) x = __fmul_rn(softcap, tanhf(__fdiv_rn(x, softcap)));
-        const bool ok = col < S && (!causal || col <= row) &&
-                        (window <= 0 || row - col < window);
-        Ps[(ty + 16 * i) * kPS + tx + 16 * j] = ok ? x : kMaskValue;
+        if (nkt < hi) fetch(nkt, nidx, st ^ 1);
       }
-    __syncthreads();
+      const float* buf = ring + st * STAGE;
+      st ^= 1;
 
-    // online softmax: warp w owns rows w * 8 .. w * 8 + 7
-    for (int rr = 0; rr < kBQ / kWarps; ++rr) {
-      const int r = warp * (kBQ / kWarps) + rr;
-      float* pr = Ps + r * kPS;
-      const float x0 = pr[lane], x1 = pr[lane + 32];
-      float mx = fmaxf(x0, x1);
+      if (idx < NK) {
+        // s += Q[:, 32 idx ..] . K_slab^T
+        if (idx == 0) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = expf(__fsub_rn(x0, m_new));
-      const float p1 = expf(__fsub_rn(x1, m_new));
-      pr[lane] = p0;
-      pr[lane + 32] = p1;
-      float sum = __fadd_rn(p0, p1);
+          for (int r = 0; r < kR; ++r)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(__fsub_rn(m_old, m_new));
-        a_s[r] = alpha;
-        l_s[r] = __fadd_rn(__fmul_rn(alpha, l_s[r]), sum);
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V: rows ty + 16 i, columns 4 tx + 64 j + e
+            for (int c = 0; c < kC; ++c) s[r][c] = 0.0f;
+        }
+        const float* qs = Qs + r0 * HDP + idx * kSlab;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = a_s[ty + 16 * i];
+        for (int dd = 0; dd < kSlab; dd += 4) {
+          float4 qv[kR];
 #pragma unroll
-      for (int j = 0; j < NC; ++j)
+          for (int r = 0; r < kR; ++r)
+            qv[r] = *reinterpret_cast<const float4*>(qs + r * HDP + dd);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = __fmul_rn(acc[i][j][e], alpha);
-    }
-    for (int c = 0; c < kBK; c += 4) {
-      float4 p[4];
+          for (int c = 0; c < kC; ++c) {
+            const float4 kv = *reinterpret_cast<const float4*>(
+                buf + (lane + 32 * c) * kKS + dd);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p[i] = *reinterpret_cast<const float4*>(&Ps[(ty + 16 * i) * kPS + c]);
+            for (int r = 0; r < kR; ++r) {
+              float a = s[r][c];
+              a = __fmaf_rn(qv[r].x, kv.x, a);
+              a = __fmaf_rn(qv[r].y, kv.y, a);
+              a = __fmaf_rn(qv[r].z, kv.z, a);
+              a = __fmaf_rn(qv[r].w, kv.w, a);
+              s[r][c] = a;
+            }
+          }
+        }
+        if (idx == NK - 1) {
+          // cap, mask, online softmax on the register tile; branches are
+          // uniform over the warp and sit outside the per-score loops
+          if (softcap > 0.0f) {
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
+            for (int r = 0; r < kR; ++r)
 #pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              &Vs[(c + cc) * HDP + 4 * tx + 64 * j]);
+              for (int c = 0; c < kC; ++c)
+                s[r][c] = __fmul_rn(softcap,
+                                    tanhf(__fmul_rn(s[r][c], inv_cap)));
+          }
+          if (!(k0 + kBK <= S && (!causal || k0 + kBK - 1 <= rowb) &&
+                (window <= 0 || rowb + kR - 1 - k0 < window))) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float pc = cc == 0 ? p[i].x : cc == 1 ? p[i].y
-                           : cc == 2 ? p[i].z : p[i].w;
-            acc[i][j][0] = __fmaf_rn(pc, vv.x, acc[i][j][0]);
-            acc[i][j][1] = __fmaf_rn(pc, vv.y, acc[i][j][1]);
-            acc[i][j][2] = __fmaf_rn(pc, vv.z, acc[i][j][2]);
-            acc[i][j][3] = __fmaf_rn(pc, vv.w, acc[i][j][3]);
+            for (int r = 0; r < kR; ++r)
+#pragma unroll
+              for (int c = 0; c < kC; ++c) {
+                const int row = rowb + r, col = k0 + lane + 32 * c;
+                const bool ok = col < S && (!causal || col <= row) &&
+                                (window <= 0 || row - col < window);
+                if (!ok) s[r][c] = kMaskValue;
+              }
+          }
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            float mx = s[r][0];
+#pragma unroll
+            for (int c = 1; c < kC; ++c) mx = fmaxf(mx, s[r][c]);
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+              mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+            const float m_new = fmaxf(m[r], mx);
+            const float alpha = expf(__fsub_rn(m[r], m_new));
+            m[r] = m_new;
+            float sum = 0.0f;
+#pragma unroll
+            for (int c = 0; c < kC; ++c) {
+              const float p = expf(__fsub_rn(s[r][c], m_new));
+              s[r][c] = p;
+              sum = __fadd_rn(sum, p);
+            }
+            l[r] = __fadd_rn(__fmul_rn(alpha, l[r]), sum);
+#pragma unroll
+            for (int c = 0; c < NCOL; ++c)
+              acc[r][c] = __fmul_rn(acc[r][c], alpha);
+          }
+          // P^T: key lane + 32 c, rows r0 .. r0 + 7
+#pragma unroll
+          for (int c = 0; c < kC; ++c) {
+            float* dst = Pt + (lane + 32 * c) * kPS + r0;
+            *reinterpret_cast<float4*>(dst) =
+                make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+            *reinterpret_cast<float4*>(dst + 4) =
+                make_float4(s[4][c], s[5][c], s[6][c], s[7][c]);
+          }
+        }
+      } else {
+        // acc += P[:, keys of the slab] . V_slab
+        const float* pt = Pt + (idx - NK) * kSlab * kPS + r0;
+#pragma unroll 4
+        for (int kk = 0; kk < kSlab; ++kk) {
+          const float4 p0 = *reinterpret_cast<const float4*>(pt + kk * kPS);
+          const float4 p1 =
+              *reinterpret_cast<const float4*>(pt + kk * kPS + 4);
+          const float pr[kR] = {p0.x, p0.y, p0.z, p0.w,
+                                p1.x, p1.y, p1.z, p1.w};
+          const float* vs = buf + kk * HDP + VW * lane;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            float vv[VW];
+            if constexpr (VW == 4) {
+              const float4 t = *reinterpret_cast<const float4*>(vs + 128 * j);
+              vv[0] = t.x;
+              vv[1] = t.y;
+              vv[2] = t.z;
+              vv[3] = t.w;
+            } else {
+              const float2 t = *reinterpret_cast<const float2*>(vs + 64 * j);
+              vv[0] = t.x;
+              vv[1] = t.y;
+            }
+#pragma unroll
+            for (int r = 0; r < kR; ++r)
+#pragma unroll
+              for (int e = 0; e < VW; ++e)
+                acc[r][VW * j + e] =
+                    __fmaf_rn(pr[r], vv[e], acc[r][VW * j + e]);
           }
         }
       }
     }
   }
-  __syncthreads();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i, row = q0 + r;
+  for (int r = 0; r < kR; ++r) {
+    float lt = l[r];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      lt = __fadd_rn(lt, __shfl_xor_sync(0xffffffffu, lt, off));
+    const int row = rowb + r;
     if (row >= S) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
+    lt = fmaxf(lt, 1e-30f);
+    float* orow = o + (((size_t)b * S + row) * H + h) * hd;
 #pragma unroll
-    for (int j = 0; j < NC; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = 4 * tx + 64 * j + e;
-        if (d < hd)
-          store(o, (((size_t)b * S + row) * H + h) * hd + d,
-                __fdiv_rn(acc[i][j][e], l));
+      for (int e = 0; e < VW; ++e) {
+        const int d = VW * lane + 32 * VW * j + e;
+        if (d < hd) orow[d] = __fdiv_rn(acc[r][VW * j + e], lt);
       }
   }
 }
 
 template <int HDP>
-size_t smem_bytes() {
-  return sizeof(float) *
-         ((size_t)(kBQ + kBK) * (HDP + 4) + (size_t)kBK * HDP +
-          (size_t)kBQ * kPS + 3 * kBQ);
-}
-
-template <typename T, int HDP>
-int launch(const T* q, const T* k, const T* v, T* o, int B, int S, int H,
-           int KV, int hd, float scale, int causal, int window, float softcap,
-           cudaStream_t stream) {
-  const size_t bytes = smem_bytes<HDP>();
+int launch(const float* q, const float* k, const float* v, float* o, int B,
+           int S, int H, int KV, int hd, float scale, int causal, int window,
+           float softcap, int vec, cudaStream_t stream) {
+  constexpr size_t bytes = smem_bytes<HDP>();
   // set once, outside any graph capture (the first call is never captured)
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, HDP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        fa_f32_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T, HDP><<<grid, kThreads, bytes, stream>>>(
-      q, k, v, o, S, H, KV, hd, scale, causal, window, softcap);
+  if ((S + kBQ - 1) / kBQ > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  fa_f32_kernel<HDP><<<grid, kThreads, bytes, stream>>>(
+      q, k, v, o, S, H, KV, hd, scale, causal, window, softcap, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const T* q, const T* k, const T* v, T* o, int B, int S, int H,
-             int KV, int hd, float scale, int causal, int window,
-             float softcap, cudaStream_t stream) {
+int dispatch(const float* q, const float* k, const float* v, float* o, int B,
+             int S, int H, int KV, int hd, float scale, int causal,
+             int window, float softcap, cudaStream_t stream) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = hd % 4 == 0 && aligned(q) && aligned(k) && aligned(v);
   if (hd <= 64)
-    return launch<T, 64>(q, k, v, o, B, S, H, KV, hd, scale, causal, window,
-                         softcap, stream);
+    return launch<64>(q, k, v, o, B, S, H, KV, hd, scale, causal, window,
+                      softcap, vec, stream);
   if (hd <= 128)
-    return launch<T, 128>(q, k, v, o, B, S, H, KV, hd, scale, causal, window,
-                          softcap, stream);
-  return launch<T, 256>(q, k, v, o, B, S, H, KV, hd, scale, causal, window,
-                        softcap, stream);
+    return launch<128>(q, k, v, o, B, S, H, KV, hd, scale, causal, window,
+                       softcap, vec, stream);
+  return launch<256>(q, k, v, o, B, S, H, KV, hd, scale, causal, window,
+                     softcap, vec, stream);
 }
 
+}  // namespace f32
 
 // ---- bf16: the tensor-core kernel ----------------------------------------
 //
@@ -862,9 +1008,11 @@ int fa_attention(const void* q, const void* k, const void* v, void* o,
                         static_cast<const __nv_bfloat16*>(v),
                         static_cast<__nv_bfloat16*>(o), B, S, H, KV, hd,
                         scale, causal, window, softcap, stream);
-  return dispatch(static_cast<const float*>(q), static_cast<const float*>(k),
-                  static_cast<const float*>(v), static_cast<float*>(o), B, S,
-                  H, KV, hd, scale, causal, window, softcap, stream);
+  return f32::dispatch(static_cast<const float*>(q),
+                       static_cast<const float*>(k),
+                       static_cast<const float*>(v), static_cast<float*>(o),
+                       B, S, H, KV, hd, scale, causal, window, softcap,
+                       stream);
 }
 
 // The wgmma layout probe (tc::wgmma_probe_kernel), a test aid.  a, b:

@@ -303,6 +303,18 @@ def test_clip_accumulate_matches_plain_version(dev, N, D, dtype):
     (1, 200, 8, 1, 64, {}),                                    # KV = 1
     (1, 300, 4, 2, 64, {"window": 9}),                         # window < tile
     (1, 1024, 8, 4, 256, {"window": 300, "softcap": 50.0}),
+    # shapes the f32 kernel's tiles make hard (64-row q tiles, 256-key kv
+    # tiles, 32-column K slabs and 32-key V slabs, hd / 32 output columns
+    # per lane, 4-byte copies where hd % 4 != 0)
+    (1, 63, 4, 2, 8, {}),                                      # q tile - 1
+    (1, 65, 2, 1, 100, {"softcap": 50.0}),                     # q tile + 1
+    (2, 255, 4, 1, 256, {"window": 100}),                      # kv tile - 1
+    (1, 257, 4, 2, 256, {"softcap": 30.0, "window": 9}),       # kv tile + 1
+    (1, 257, 2, 2, 100, {"causal": False}),
+    (1, 256, 2, 2, 8, {"causal": False, "softcap": 50.0}),
+    (1, 64, 2, 1, 256, {}),
+    (1, 513, 8, 1, 8, {"window": 200, "softcap": 20.0}),
+    (1, 300, 2, 1, 37, {"window": 255}),                       # hd % 4 != 0
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain_version(dev, B, S, H, KV, hd, kw,
@@ -349,27 +361,58 @@ def test_wgmma_layout_probe_matches_matmul(dev, form):
     assert LAUNCHES["flash_attention"] == 0
 
 
-@pytest.mark.parametrize("b,s,h,p,n,chunk,init", [
-    (2, 256, 4, 32, 16, 64, False),
-    (1, 128, 2, 64, 32, 128, False),
-    (2, 192, 3, 32, 64, 64, False),
-    (1, 100, 2, 32, 16, 64, False),                            # odd s
-    (2, 130, 3, 64, 128, 128, True),                           # mamba2 n, p
-    (1, 50, 2, 64, 12, 128, False),                            # s < chunk
-])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_scan_matches_plain_version(dev, b, s, h, p, n, chunk, init,
-                                        dtype):
+def _ssd_case(b, s, h, p, n, chunk, init, a=None):
+    """A case of the SSD tests; a: every A[h] = a (strong decay) instead
+    of -exp(0.1 z)."""
+    vals = (b, s, h, p, n, chunk, init)
+    cid = "-".join(map(str, vals)) + ("" if a is None else f"-A{a:g}")
+    return pytest.param(*vals, a, id=cid)
+
+
+def _ssd_inputs(dev, b, s, h, p, n, init, a, dtype):
     import torch.nn.functional as F
-    from repro_torch.kernels import LAUNCHES, reset
-    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
     g = torch.Generator(device=dev).manual_seed(s * 3 + n)
     rn = lambda *sh: torch.randn(sh, generator=g, device=dev)  # noqa: E731
     x = rn(b, s, h, p).to(dtype)
     dt = F.softplus(rn(b, s, h))
-    A = -torch.exp(0.1 * rn(h))
+    A = -torch.exp(0.1 * rn(h)) if a is None \
+        else torch.full((h,), float(a), device=dev)
     B, C = rn(b, s, n).to(dtype), rn(b, s, n).to(dtype)
     h0 = rn(b, h, n, p) if init else None
+    return x, dt, A, B, C, h0
+
+
+def _rel(got, want):
+    err = (got.float() - want.float()).abs().max()
+    return float(err / (want.float().abs().max() + 1e-9))
+
+
+SSD_CASES = [
+    _ssd_case(2, 256, 4, 32, 16, 64, False),
+    _ssd_case(1, 128, 2, 64, 32, 128, False),                  # nc = 1
+    _ssd_case(2, 192, 3, 32, 64, 64, False),
+    _ssd_case(1, 100, 2, 32, 16, 64, False),                   # odd s
+    _ssd_case(2, 130, 3, 64, 128, 128, True),                  # mamba2 n, p
+    _ssd_case(1, 50, 2, 64, 12, 128, False),                   # s < chunk
+    # the chunk-parallel kernels' edges: mamba2-780m's heads and widths at
+    # s = 2 chunks + 1, p = 32, an initial state, decay underflowing to 0,
+    # n and p off the 32-step slabs and the 128 x 64 output tiles
+    _ssd_case(1, 257, 48, 64, 128, 128, False),
+    _ssd_case(2, 129, 4, 32, 128, 128, True),
+    _ssd_case(1, 300, 3, 64, 128, 128, True, a=-8.0),
+    _ssd_case(2, 200, 2, 32, 16, 64, False, a=-8.0),
+    _ssd_case(1, 90, 2, 72, 40, 32, True),
+    _ssd_case(1, 300, 2, 16, 136, 256, False),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,init,a", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_matches_plain_version(dev, b, s, h, p, n, chunk, init, a,
+                                        dtype):
+    from repro_torch.kernels import LAUNCHES, reset
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+    x, dt, A, B, C, h0 = _ssd_inputs(dev, b, s, h, p, n, init, a, dtype)
     reset()
     y, fin = ssd_scan(x, dt, A, B, C, chunk, h0)
     y2, fin2 = ssd_scan(x, dt, A, B, C, chunk, h0)
@@ -377,7 +420,56 @@ def test_ssd_scan_matches_plain_version(dev, b, s, h, p, n, chunk, init,
     assert _bits_equal(y.float(), y2.float()) and _bits_equal(fin, fin2)
     yr, fr = ssd_chunked(x, dt, A, B, C, chunk, h0)
     for got, want in ((y, yr), (fin, fr)):
-        err = (got.float() - want.float()).abs().max()
-        assert float(err / (want.float().abs().max() + 1e-9)) < SSD_TOL[dtype]
+        assert _rel(got, want) < SSD_TOL[dtype]
     torch.cuda.synchronize()
     assert LAUNCHES["ssd_scan"] == 2
+
+
+@pytest.mark.parametrize("phase", ["cb", "chunk_state", "state_passing",
+                                   "chunk_scan"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,init,a", [
+    _ssd_case(1, 257, 48, 64, 128, 128, True),
+    _ssd_case(2, 100, 3, 32, 16, 64, False),
+    _ssd_case(1, 300, 3, 64, 128, 128, True, a=-8.0),
+    _ssd_case(1, 90, 2, 72, 40, 32, True),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_phases_match_plain_phases(dev, phase, b, s, h, p, n,
+                                              chunk, init, a, dtype):
+    """Each of the four SSD kernels on the plain phases' inputs against
+    its plain phase, so that a fault shows its phase: f32 intermediates
+    within SSD_TOL's f32 limit of max |ref|, y within the dtype's."""
+    from repro_torch.kernels import LAUNCHES, reset
+    from repro_torch.kernels.ssd_scan import (ssd_cb, ssd_chunk_outputs,
+                                              ssd_chunk_states, ssd_chunks,
+                                              ssd_state_passing)
+    from repro_torch.kernels.ssd_scan.kernel import ssd_phase
+    x, dt, A, B, C, h0 = _ssd_inputs(dev, b, s, h, p, n, init, a, dtype)
+    xf, dtf, Af, Bc, Cc = ssd_chunks(x, dt, A, B, C, chunk)
+    CB = ssd_cb(Cc, Bc)
+    cum, states = ssd_chunk_states(xf, dtf, Af, Bc)
+    prev, final = ssd_state_passing(states, cum, h0)
+    yc = ssd_chunk_outputs(xf, dtf, cum, Cc, CB, prev)
+    cum_k = cum.permute(0, 1, 3, 2).double().contiguous()   # (b, nc, h, Q)
+    f32 = SSD_TOL[torch.float32]
+    reset()
+    if phase == "cb":
+        got = ssd_phase(phase, x, dt, A, B, C, chunk)["cb"]
+        assert _rel(torch.tril(got), torch.tril(CB)) < f32
+    elif phase == "chunk_state":
+        out = ssd_phase(phase, x, dt, A, B, C, chunk)
+        assert _rel(out["cum"], cum_k) < f32
+        assert _rel(out["states"], states) < f32
+    elif phase == "state_passing":
+        out = ssd_phase(phase, x, dt, A, B, C, chunk, h0, cum=cum_k,
+                        states=states)
+        assert _rel(out["states"], prev) < f32
+        assert _rel(out["final"], final) < f32
+    else:
+        out = ssd_phase(phase, x, dt, A, B, C, chunk, cb=CB, cum=cum_k,
+                        states=prev)
+        want = yc.reshape(b, -1, h, p)[:, :s]
+        assert out["y"].dtype == dtype
+        assert _rel(out["y"], want) < SSD_TOL[dtype]
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == 0

@@ -1,7 +1,9 @@
 """The port's Mamba-2 mixer against the live JAX reference: the
 ``ssd_scan`` ops (plain route on the CPU) against the reference's
 ``ops.ssd`` (Pallas, interpret mode) at the reference suite's shapes,
-``ssd_chunked`` with its final state, and every function of
+``ssd_chunked`` with its final state, each of its phases (the CUDA
+kernels' phases: ``ssd_cb``, ``ssd_chunk_states``, ``ssd_state_passing``,
+``ssd_chunk_outputs``), and every function of
 ``models/ssm.py`` at ``reduced(mamba2_780m)`` with the reference's
 params carried across by ``repro_torch.convert``.
 
@@ -113,6 +115,100 @@ def test_ssd_chunked_final_state_matches_reference(init, s, chunk):
     for got in ((ty, tf), (ky, kf)):
         assert _rel(got[0], jy) < SSD_TOL["float32"]
         assert _rel(got[1], jf) < SSD_TOL["float32"]
+
+
+# --- the plain SSD's phases (the kernels' phases) ---------------------------
+
+PHASE_CASES = [
+    pytest.param(2, 100, 3, 32, 16, 64, False, "float32", None,
+                 id="ragged-s-p32"),
+    pytest.param(1, 50, 2, 64, 12, 128, False, "float32", None,
+                 id="s-below-chunk"),
+    pytest.param(2, 192, 3, 64, 32, 64, True, "float32", None,
+                 id="initial-state"),
+    pytest.param(2, 130, 2, 32, 16, 64, True, "bfloat16", None, id="bf16"),
+    pytest.param(1, 200, 2, 32, 16, 64, True, "float32", -8.0,
+                 id="strong-decay"),
+]
+
+
+@pytest.mark.parametrize("phase", ["cb", "chunk_states", "state_passing",
+                                   "chunk_outputs", "composition"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,init,dtype,a", PHASE_CASES)
+def test_ssd_phases_match_reference(phase, b, s, h, p, n, chunk, init,
+                                    dtype, a):
+    """Each plain phase of ``ref.py`` (what each CUDA kernel computes)
+    against the JAX reference: C B^T against the reference's own einsum
+    on its padded chunks; dA_cum against its cumsum; each chunk's own
+    state against ``ssd_chunked``'s final state of that chunk alone; the
+    state before chunk c against its final state over the first c chunks;
+    the outputs and the composition against its ``y`` (and the Pallas
+    ``ops.ssd`` in interpret mode).  f32 intermediates within SSD_TOL's
+    f32 limit of max |ref|, y within the dtype's."""
+    x, dt, A, B, C = _ssd_inputs(6, b, s, h, p, n)
+    if a is not None:
+        A = np.full((h,), a, np.float32)
+    h0 = (np.random.default_rng(7).standard_normal((b, h, n, p))
+          .astype(np.float32) if init else None)
+    jin = (jnp.asarray(x, JDT[dtype]), jnp.asarray(dt), jnp.asarray(A),
+           jnp.asarray(B, JDT[dtype]), jnp.asarray(C, JDT[dtype]))
+    tin = tuple(torch.tensor(np.asarray(t.astype(jnp.float32)))
+                .to(TDT[dtype] if i in (0, 3, 4) else torch.float32)
+                for i, t in enumerate(jin))
+    jh0 = None if h0 is None else jnp.asarray(h0)
+    th0 = None if h0 is None else torch.tensor(h0)
+    Q = min(chunk, s)
+    nc = -(-s // Q)
+    pad = nc * Q - s
+    f32 = SSD_TOL["float32"]
+
+    def jchunks(t):                                   # (b, s, ...) f32
+        t = jnp.pad(t.astype(jnp.float32),
+                    ((0, 0), (0, pad)) + ((0, 0),) * (t.ndim - 2))
+        return t.reshape((b, nc, Q) + t.shape[2:])
+
+    def jssd_prefix(t1, init=None):                   # the first t1 steps
+        return jssm.ssd_chunked(jin[0][:, :t1], jin[1][:, :t1], jin[2],
+                                jin[3][:, :t1], jin[4][:, :t1], chunk,
+                                initial_state=init)
+
+    xf, dtf, Af, Bc, Cc = tssd.ssd_chunks(*tin, chunk)
+    cum, states = tssd.ssd_chunk_states(xf, dtf, Af, Bc)
+    prev, final = tssd.ssd_state_passing(states, cum, th0)
+    CB = tssd.ssd_cb(Cc, Bc)
+    yc = tssd.ssd_chunk_outputs(xf, dtf, cum, Cc, CB, prev)
+    jy, jf = jssd_prefix(s, jh0)
+    if phase == "cb":
+        want = jnp.einsum("bcin,bcjn->bcij", jchunks(jin[4]), jchunks(jin[3]))
+        assert _rel(CB, want) < f32
+    elif phase == "chunk_states":
+        assert _rel(cum, jnp.cumsum(jchunks(jin[1]) * jin[2][None, None, None],
+                                    axis=2)) < f32
+        for c in range(nc):
+            t0, t1 = c * Q, min(s, (c + 1) * Q)
+            _, jst = jssm.ssd_chunked(jin[0][:, t0:t1], jin[1][:, t0:t1],
+                                      jin[2], jin[3][:, t0:t1],
+                                      jin[4][:, t0:t1], chunk)
+            assert _rel(states[:, c], jst) < f32
+    elif phase == "state_passing":
+        start = torch.zeros_like(final) if th0 is None else th0
+        assert torch.equal(prev[:, 0], start)
+        for c in range(1, nc):
+            assert _rel(prev[:, c], jssd_prefix(c * Q, jh0)[1]) < f32
+        assert _rel(final, jf) < f32
+    elif phase == "chunk_outputs":
+        assert yc.dtype == torch.float32
+        assert _rel(yc.reshape(b, nc * Q, h, p)[:, :s], jy) < SSD_TOL[dtype]
+    else:
+        ty, tf = tssd.ssd_chunked(*tin, chunk, th0)
+        assert ty.dtype == TDT[dtype]
+        assert _rel(ty, jy) < SSD_TOL[dtype] and _rel(tf, jf) < f32
+        assert torch.equal(ty, (yc.reshape(b, nc * Q, h, p)[:, :s]
+                                .to(TDT[dtype])))
+        if h0 is None:      # the Pallas ops take no initial state
+            want = jssd.ssd(jin[0], *(t.astype(jnp.float32)
+                                      for t in jin[1:]), chunk=chunk)
+            assert _rel(ty, want) < SSD_TOL[dtype]
 
 
 # --- models/ssm.py --------------------------------------------------------
