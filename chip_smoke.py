@@ -15,7 +15,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    rows;
    also ``bucket_apply`` at FedAsync's ``A = R`` with decay weights and
    ``tick_scatter`` at its ``G = L * R``, and the in-kernel noise's
-   counter stream bit for bit;
+   counter stream bit for bit; ``tick_scatter`` (and, in phase 6,
+   ``clip_accumulate``) also bit for bit against its order-exact twin,
+   with the time of each of its passes (``torch.profiler``), its ptxas
+   report (a spill fails) and a planted fault, one block's partial left
+   out of the finish pass, that SUM_RTOL must catch;
 2. the FedSGD census case (C = 4096), whose integer op census must
    reproduce the reference's, and a small DP case that must agree with
    the port's plain CPU run;
@@ -32,7 +36,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    port's plain CPU run, with both noise sources;
 6. the model-scale kernels (``clip_accumulate``, ``flash_attention``,
    ``ssd_scan``) against their plain versions at the shapes of the three
-   paths below and at ragged edge shapes (the f32 attention kernel's and
+   paths below (``clip_accumulate`` at the DP round's N = 60000 and its
+   microbatch's 6000, f32 and bf16) and at ragged edge shapes (the f32 attention kernel's and
    the chunk-parallel SSD's tile edges among them), f32 and bf16; the
    ptxas report of both attention kernels (the f32 one at hd 256 may not
    spill) and of the four SSD kernels; for the bf16 ``flash_attention``
@@ -51,8 +56,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    with and without the final state; its warm wall through the kernel
    must be below its wall through the plain SSD.
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-and, last, ``{"ok": true, "device": {...}}``.  Any failure exits
+Prints the card's name and power limit, one ``{"kernels": [...]}`` line
+(launches from the path that runs each kernel most: the tick kernels'
+from the scenario runs, with the main run's beside them), and, last,
+``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line; so does a machine without CUDA.
 """
 from __future__ import annotations
@@ -178,6 +185,94 @@ def median_ms(fn, n: int = 10, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(fn, n: int = 20) -> dict:
+    """Mean device time of one launch of each kernel that ``fn``
+    launches, by kernel name: ``torch.profiler`` over ``n`` calls after a
+    warm-up (a breakdown of a wrapper's passes, each launched once a
+    call; not counted as launches of the path).  Per launch, not per
+    call: a later profiler session in one process may not keep every
+    event."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "")) or not e.count:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+        out[name.split("(")[0]] = us / 1e3 / e.count
+    return out
+
+
+def scatter_bound(C: int, D: int, G: int, nd: int):
+    """tick_scatter's bound: read sent, w, U on the nd done rows, upd, wgt
+    and the masks; write w, U and upd; G products and sums per element of
+    sent, three operations per element of a done row."""
+    return bound(4 * (2 * C * D + nd * D + 2 * G * D + G * C + C
+                      + 2 * C * D) + G + C, 2 * G * C * D + 3 * nd * D)
+
+
+def clip_bound(N: int, D: int, esz: int):
+    """clip_accumulate's bound: read G once, write D f32; a product and a
+    sum per element for the norms and again for the scaled sums."""
+    return bound(esz * N * D + 4.0 * D, 4.0 * N * D)
+
+
+def scatter_planted_drop(args, plain) -> float:
+    """A planted fault read against tick_scatter's plain ring rows: the
+    ring rows with the middle block's partial left out of the finish pass
+    (the kernel's add order, ``tick_scatter_twin``'s, on the CPU).
+    Returns max |faulty - plain| / (SUM_RTOL * sum|terms|): above 1, the
+    limit catches it."""
+    import torch
+    from repro_torch.kernels import row_tiles
+    from repro_torch.kernels.tick_fused.ref import SCATTER_TILE_ROWS
+    sent, _, _, upd, wgt, any_g, _, _ = (a.cpu() for a in args)
+    rb, _ = row_tiles.partition(sent.shape[0], SCATTER_TILE_ROWS)
+    part = row_tiles.block_sums(wgt.T[:, :, None] * sent[:, None, :], rb)
+    part[part.shape[0] // 2] = 0.0
+    faulty = torch.where(any_g[:, None], upd + row_tiles.finish_tree(part),
+                         upd)
+    tol = SUM_RTOL * (wgt.abs() @ sent.abs()) + 1e-30
+    return float(((faulty - plain.cpu()).abs() / tol).max())
+
+
+def clip_planted_drop(G, clip: float, plain) -> float:
+    """The same planted fault for clip_accumulate (``clip_accumulate_twin``'s
+    order): max |faulty - plain| / (SUM_RTOL * sum|terms|)."""
+    from repro_torch.kernels import row_tiles
+    from repro_torch.kernels.dp_clip.ref import (TILE_ROWS,
+                                                 clip_accumulate_ref,
+                                                 row_scales)
+    g = G.cpu()
+    rb, _ = row_tiles.partition(g.shape[0], TILE_ROWS[g.dtype])
+    part = row_tiles.block_sums(g.float() * row_scales(g, clip)[:, None], rb)
+    part[part.shape[0] // 2] = 0.0
+    tol = SUM_RTOL * clip_accumulate_ref(g.abs(), clip) + 1e-30
+    return float(((row_tiles.finish_tree(part) - plain.cpu()).abs()
+                  / tol).max())
+
+
+def print_ptxas(what: str, log: str, kernels) -> None:
+    """Print the ptxas lines of ``kernels`` in ``log``; fail on a spill."""
+    rep = [r for kern in kernels for r in ptxas_report(log, kern)]
+    for take, line in rep or [(what, "(library cached: no ptxas report)")]:
+        print(f"phase kernels: {what} ptxas: {take}: {line}")
+    if spill_bytes(rep):
+        fail(f"{what}: a kernel spills registers")
+
+
 def bound_terms(nbytes: float, flops: float, int_ops: float = 0.0):
     """(bytes ms, operations ms): the bytes over the memory rate, the
     operations over the peak rate of their type (f32 and int32 run on
@@ -191,9 +286,10 @@ def bound(nbytes: float, flops: float, int_ops: float = 0.0):
     return (max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, logs):
     """Phase 1: each kernel against its plain version at the main run's
-    shapes; returns the kernels' JSON entries (launches filled later)."""
+    shapes; returns the kernels' JSON entries (launches filled later).
+    ``logs``: the nvcc logs of the sources built by this run."""
     import torch
     from repro_torch import prng
     from repro_torch.analysis.salts import NOISE_SALT
@@ -208,7 +304,8 @@ def phase_kernels(dev):
                                                 tick_deliver,
                                                 tick_deliver_ref,
                                                 tick_scatter,
-                                                tick_scatter_ref)
+                                                tick_scatter_ref,
+                                                tick_scatter_twin)
 
     from repro_torch.cohort.state import next_pow2
 
@@ -297,22 +394,31 @@ def phase_kernels(dev):
     if not bool((diff <= SUM_RTOL * absum + 1e-30).all()):
         fail(f"tick_scatter ring rows off by {float(diff.max())} "
              f"(> {SUM_RTOL} * sum|terms|)")
+    sargs = (sent, w, U, upd, wgt, any_g, done, eta)
+    twin = tick_scatter_twin(*(a.cpu() for a in sargs), dp_on=True)
+    if not all(bits_equal(a.cpu(), b) for a, b in zip(kw1, twin)):
+        fail("tick_scatter is not bitwise equal to its order-exact twin")
+    planted = scatter_planted_drop(sargs, pw[2])
+    print(f"phase kernels: tick_scatter planted fault (a block partial "
+          f"left out of the finish pass): max diff / limit = {planted}")
+    if not planted > 1.0:
+        fail("tick_scatter: SUM_RTOL passes a dropped block partial")
+    print_ptxas("tick_scatter", logs.get("tick_fused", ""),
+                ("tick_scatter_rows_kernel", "finish_kernel"))
     err = max(float((a - b).abs().max()) for a, b in zip(kw1, pw))
-    ms = median_ms(lambda: tick_scatter(sent, w, U, upd, wgt, any_g, done,
-                                        eta, dp_on=True))
-    pms = median_ms(lambda: tick_scatter_ref(sent, w, U, upd, wgt, any_g,
-                                             done, eta, dp_on=True))
+    ms = median_ms(lambda: tick_scatter(*sargs, dp_on=True))
+    pms = median_ms(lambda: tick_scatter_ref(*sargs, dp_on=True))
+    passes = kernel_ms(lambda: tick_scatter(*sargs, dp_on=True))
     nd = int(done.sum())
-    G = L
-    # read sent and w, U on done rows, upd, wgt, masks; write w, U, upd
-    bms, by = bound(f4 * (2 * C * D + nd * D + 2 * G * D + G * C + C
-                          + 2 * C * D) + G + C,
-                    2 * G * C * D + 3 * nd * D)
-    out.append(dict(name="tick_scatter", route="cuda",
-                    source="src/repro_torch/csrc/tick_fused.cu",
-                    replaces="src/repro/kernels/tick_fused/kernel.py:129",
-                    max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                    bound_by=by, library_ms=None))
+    bms, by = scatter_bound(C, D, L, nd)
+    print(f"phase kernels: tick_scatter C={C} D={D} G={L} done={nd} ms={ms} "
+          f"passes_ms={passes} bound_ms={bms} ({by}) plain_ms={pms}")
+    scatter = dict(name="tick_scatter", route="cuda",
+                   source="src/repro_torch/csrc/tick_fused.cu",
+                   replaces="src/repro/kernels/tick_fused/kernel.py:129",
+                   max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                   bound_by=by, library_ms=None)
+    out.append(scatter)
 
     # -- cohort_clip_noise: clip > 0 and clip = 0 -------------------------
     u = 0.05 * randn(C, D) * (2.0 * rand(C))[:, None]   # norms in [0, 2.8]
@@ -498,10 +604,17 @@ def phase_kernels(dev):
     diff = (kw1[2] - pw[2]).abs()
     if not bool((diff <= SUM_RTOL * (wgt.abs() @ sent.abs()) + 1e-30).all()):
         fail(f"tick_scatter (G = L * R) rows off by {float(diff.max())}")
-    gms = median_ms(lambda: tick_scatter(sent, w, U, upd, wgt, any_g, done,
-                                         eta, dp_on=True))
+    sargs = (sent, w, U, upd, wgt, any_g, done, eta)
+    twin = tick_scatter_twin(*(a.cpu() for a in sargs), dp_on=True)
+    if not all(bits_equal(a.cpu(), b) for a, b in zip(kw1, twin)):
+        fail("tick_scatter (G = L * R) is not bitwise equal to its twin")
+    gms = median_ms(lambda: tick_scatter(*sargs, dp_on=True))
+    passes = kernel_ms(lambda: tick_scatter(*sargs, dp_on=True))
+    gbms, _ = scatter_bound(C, D, G, nd)
+    scatter.update(ms_g8=gms, bound_g8_ms=gbms)
     print(f"phase kernels: FedAsync shapes ok: bucket_apply A={R} "
           f"dec={dec_r.tolist()}; tick_scatter G={G} ms={gms} "
+          f"passes_ms={passes} bound_ms={gbms} "
           f"max_abs_err={float(diff.max())}")
     return out
 
@@ -1079,7 +1192,8 @@ def phase_model_kernels(dev, G, logs):
     import torch.nn.functional as F
     from repro_torch.configs import fl_config_fig1b
     from repro_torch.kernels.dp_clip import (clip_accumulate,
-                                             clip_accumulate_ref)
+                                             clip_accumulate_ref,
+                                             clip_accumulate_twin)
     from repro_torch.kernels.flash_attention import attend, attention_ref
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 
@@ -1100,6 +1214,9 @@ def phase_model_kernels(dev, G, logs):
         p = clip_accumulate_ref(Gm, clip)
         if not bits_equal(k1, k2):
             fail(f"clip_accumulate ({what}): two launches differ")
+        if not bits_equal(k1.cpu(), clip_accumulate_twin(Gm.cpu(), clip)):
+            fail(f"clip_accumulate ({what}) is not bitwise equal to its "
+                 f"order-exact twin")
         tol = SUM_RTOL * clip_accumulate_ref(Gm.abs(), clip)  # sum|terms|
         diff = (k1 - p).abs()
         if not bool((diff <= tol + 1e-30).all()):
@@ -1108,23 +1225,50 @@ def phase_model_kernels(dev, G, logs):
         return float(diff.max())
 
     N, D = G.shape
+    Gmb = G[:DP_MICROBATCH]                     # the first microbatch's
     err = check_clip(G, f"N={N} D={D}")
+    check_clip(Gmb, f"N={DP_MICROBATCH} D={D}")
     edges = []
-    for (n, d) in ((1, 1), (37, 13), (4, 300), (130, 785)):
+    # the tiles (12 rows f32, 24 bf16) +- 1, the column slab (1024) + 1,
+    # and a base pointer off its 16-byte line (a row view)
+    for (n, d) in ((1, 1), (37, 13), (4, 300), (130, 785), (11, 785),
+                   (13, 785), (25, 785), (40, 1025)):
         for dt in (f32, bf16):
             edges.append(check_clip((3.0 * randn(n, d)).to(dt),
                                     f"N={n} D={d} {dt}"))
-    ms = median_ms(lambda: clip_accumulate(G, clip=clip))
-    pms = median_ms(lambda: clip_accumulate_ref(G, clip))
-    bms, by = bound(4.0 * (N * D + D), 4.0 * N * D)
-    print(f"phase model_kernels: clip_accumulate N={N} D={D} ms={ms} "
-          f"plain_ms={pms} bound_ms={bms} ({by}) max_abs_err={err} "
+            edges.append(check_clip((3.0 * randn(n + 1, d)).to(dt)[1:],
+                                    f"N={n} D={d} {dt} row view"))
+    planted = clip_planted_drop(G, clip, clip_accumulate_ref(G, clip))
+    print(f"phase model_kernels: clip_accumulate planted fault (a block "
+          f"partial left out of the finish pass): max diff / limit = "
+          f"{planted}")
+    if not planted > 1.0:
+        fail("clip_accumulate: SUM_RTOL passes a dropped block partial")
+    print_ptxas("clip_accumulate", logs.get("dp_clip", ""),
+                ("clip_rows_kernel", "clip_norms_kernel", "finish_kernel"))
+    times = {}
+    for Gm in (G, Gmb, G.to(bf16)):
+        n = Gm.shape[0]
+        ms = median_ms(lambda: clip_accumulate(Gm, clip=clip))
+        pms = median_ms(lambda: clip_accumulate_ref(Gm, clip))
+        passes = kernel_ms(lambda: clip_accumulate(Gm, clip=clip))
+        bms, by = clip_bound(n, D, Gm.element_size())
+        times[(n, Gm.dtype)] = (ms, pms, bms, by)
+        print(f"phase model_kernels: clip_accumulate N={n} D={D} "
+              f"{Gm.dtype} ms={ms} passes_ms={passes} plain_ms={pms} "
+              f"bound_ms={bms} ({by})")
+    print(f"phase model_kernels: clip_accumulate max_abs_err={err} "
           f"edges_max_abs_err={max(edges)}")
+    ms, pms, bms, by = times[(N, f32)]
+    ms6, pms6, bms6, _ = times[(DP_MICROBATCH, f32)]
     out.append(dict(name="clip_accumulate", route="cuda",
                     source="src/repro_torch/csrc/dp_clip.cu",
                     replaces="src/repro/kernels/dp_clip/kernel.py:47",
                     max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                    bound_by=by, library_ms=None))
+                    bound_by=by, library_ms=None, ms_n6000=ms6,
+                    plain_n6000_ms=pms6, bound_n6000_ms=bms6,
+                    ms_bf16=times[(N, bf16)][0],
+                    bound_bf16_ms=times[(N, bf16)][2]))
 
     # -- flash_attention at gemma2-2b's layer ------------------------------
     # the registers / spills of both kernels (f32: none may spill), and the
@@ -1376,11 +1520,15 @@ def phase_dp_round(dev, X, y):
     tol = SUM_RTOL * terms + 8 * 2.0 ** -23 * clip * sigma * noise.abs()
 
     launches.reset()
+    split = {}
     for mb, want in ((0, 1), (DP_MICROBATCH, n // DP_MICROBATCH)):
+        before = launches.LAUNCHES["clip_accumulate"]
         walls, (U, loss) = timed_calls(
             lambda: dp_sgd_round(loss_fn, params, batch, clip_norm=clip,
                                  sigma=sigma, rng=key, microbatch=mb),
             "clip_accumulate", want, f"dp_round (microbatch={mb})")
+        split[f"launches_n{mb or n}"] = (launches.LAUNCHES["clip_accumulate"]
+                                         - before)
         Uc, loss_c = dp_sgd_round(loss_fn, params_c, batch_c, clip_norm=clip,
                                   sigma=sigma, rng=key, microbatch=mb)
         u = torch.cat([U["b"].reshape(1), U["w"]]).cpu()
@@ -1400,7 +1548,7 @@ def phase_dp_round(dev, X, y):
               f"walls_s={walls} "
               f"mean_loss card={lg} cpu={lc} U_max_abs_diff="
               f"{float(diff.max())} |U|_2={float(u.norm())}")
-    return G, dict(launches.LAUNCHES)
+    return G, dict(launches.LAUNCHES), split
 
 
 def phase_attention_layer(dev):
@@ -1539,7 +1687,7 @@ def main() -> int:
     dev = resolve_device(None)
 
     t0 = time.perf_counter()
-    kernels = phase_kernels(dev)
+    kernels = phase_kernels(dev, logs)
     print(f"phase kernels: wall_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     phase_census(dev)
@@ -1558,7 +1706,7 @@ def main() -> int:
     print(f"phase small_scenario_agreement: wall_s="
           f"{time.perf_counter() - t0}")
     t0 = time.perf_counter()
-    G, dp_counts = phase_dp_round(dev, X, y)
+    G, dp_counts, dp_split = phase_dp_round(dev, X, y)
     print(f"phase dp_round: wall_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     attn_counts = phase_attention_layer(dev)
@@ -1569,23 +1717,29 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += phase_model_kernels(dev, G, logs)
     print(f"phase model_kernels: wall_s={time.perf_counter() - t0}")
-    # launches: each kernel's count from the path that runs it: the main
-    # run for the four main-path kernels, the scenario runs (in-kernel
-    # noise) for the fifth, the DP round, the attention layer and the SSM
-    # layer for the model-scale three
-    path_counts = dict(cohort_clip_noise_prng=scn_counts,
+    # launches: each kernel's count from the path that runs it most: the
+    # scenario runs (in-kernel noise) for the tick kernels, each on every
+    # tick or completion tick there (the main run's count beside them),
+    # the main run for the operand noise kernel, the DP round (split by
+    # N), the attention layer and the SSM layer for the model-scale three
+    path_counts = dict(bucket_apply=scn_counts, tick_deliver=scn_counts,
+                       tick_scatter=scn_counts,
+                       cohort_clip_noise_prng=scn_counts,
                        clip_accumulate=dp_counts,
                        flash_attention=attn_counts, ssd_scan=ssm_counts)
     for k in kernels:
         k["launches"] = path_counts.get(k["name"], counts)[k["name"]]
+        if k["name"] in ("bucket_apply", "tick_deliver", "tick_scatter"):
+            k["launches_main"] = counts[k["name"]]
+        if k["name"] == "clip_accumulate":
+            k.update(dp_split)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # flash_attention's bf16 path beside its f32 one
-    bf16_keys = ("ms_bf16", "bound_bf16_ms", "library_bf16_ms",
-                 "tensor_core_share")
+    # then each kernel's own extra keys (other shapes and dtypes, the
+    # main run's launches)
     print(json.dumps({"kernels": [
-        {key: k[key] for key in keys + (
-            bf16_keys if k["name"] == "flash_attention" else ())}
+        {**{key: k[key] for key in keys},
+         **{key: v for key, v in k.items() if key not in keys}}
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

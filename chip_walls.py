@@ -8,7 +8,9 @@ Runs, from the checkout at TREE (default: this one), the main run of
 in-kernel noise, twice each, then the two scenario runs with in-kernel
 noise, and prints one ``walls LABEL ...`` line per run: the wall, ms
 per tick, and the CUDA-event spans of the round-completion noise calls
-(sum, median, first, max).  The spans include any time the card waits
+(sum, median, first, max).  Then the DP round of ``chip_smoke.py``
+(``dp_sgd_round`` over the main data), whole and in its microbatches,
+three calls each (the first carries the one-time set-up).  The spans include any time the card waits
 for the host inside the call.  To compare two commits, unpack the other
 one into a directory that ``.gitignore`` lists and run both in one call,
 in turns (parent, change, change, parent); each run is its own process.
@@ -20,6 +22,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 
 def spans(eng):
@@ -59,7 +62,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    _build.build_all(["tick_fused", "cohort_dp"])
+    _build.build_all(["tick_fused", "cohort_dp", "dp_clip"])
     dev = torch.device("cuda")
     X, y, kw = cs.main_inputs()
 
@@ -89,6 +92,29 @@ def main() -> int:
                  else rt.core.FedBuffStrategy(**hp))
         run(f"{sc['tag']} in_kernel", sc["block"], sc["rounds"],
             sc["rounds"], scenario=scn, strategy=strat, dp_rng="in_kernel")
+
+    from repro_torch import prng
+    from repro_torch.configs import fl_config_fig1b
+    from repro_torch.dp import dp_sgd_round
+    from repro_torch.models import logreg
+    dp = fl_config_fig1b().dp
+    params = logreg.init_params(X.shape[1], prng.PRNGKey(0), device=dev)
+    batch = (torch.as_tensor(X, device=dev), torch.as_tensor(y, device=dev))
+
+    def loss_fn(p, ex):
+        return logreg.per_example_loss(p, ex[0], ex[1])
+    for mb in (0, cs.DP_MICROBATCH):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dp_sgd_round(loss_fn, params, batch, clip_norm=dp.clip_norm,
+                         sigma=dp.sigma, rng=prng.PRNGKey(m["seed"]),
+                         microbatch=mb)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        print(f"walls {label} dp_round microbatch={mb}: walls_s={walls}",
+              flush=True)
     return 0
 
 

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds).  Libraries are cached by a hash of
-their source and flags in ``build/cuda/`` at the repository root (listed
+their source, the shared headers (``csrc/*.cuh``) and the flags in
+``build/cuda/`` at the repository root (listed
 in ``.gitignore``).  ``build_all``
 compiles every missing library, one ``nvcc`` per source, all started
 together; ``load`` builds on first use.
@@ -48,6 +49,7 @@ def nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}-{tag}.so"
 

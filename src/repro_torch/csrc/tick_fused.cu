@@ -11,13 +11,26 @@
 // clients in a fixed order with no atomics, so two runs give the same
 // bits.
 //
+// tick_scatter runs on every completion tick (thousands of launches a
+// scenario run).  Its rows pass streams sent, w and (on done rows) U
+// through shared memory in tiles of 4 client rows by 16-byte cp.async, a
+// tile's copies in flight while the previous tile is used: w' and U' go
+// out of the tile as 16-byte stores, and each thread adds its two columns
+// of the tile into register sums for up to 8 ring rows at a time over the
+// block's whole row range (row_tiles.cuh: at most 264 blocks, two resident
+// on each SM, so the 16384 clients of the main run are 256 blocks of 64
+// rows and 256 partial rows per ring row).  The finish pass adds those in
+// a tree of 16 leaves per column, many blocks wide.  One pass over the
+// bytes, every SM busy: what the byte bound asks for.
+//
 // Rounding: every product and sum is an explicit round-to-nearest
 // intrinsic (__fmul_rn / __fadd_rn / __fsub_rn), which nvcc never
 // contracts into an FMA; the file is also built with -fmad=false.  So
 // bucket_apply (A == 1), tick_deliver and the w/U outputs of
 // tick_scatter round exactly like PyTorch's eager plain versions and
 // match them bit for bit; the scatter sums differ from torch.sum only
-// in their add order.
+// in their add order, which kernels/tick_fused/ref.py's
+// tick_scatter_twin repeats exactly.
 //
 // Each extern "C" entry point launches on the caller's stream and
 // returns cudaGetLastError(); the Python wrapper raises if it is not 0.
@@ -25,14 +38,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_tiles.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-// rows of the client axis one scatter block reduces (fixed: it sets
-// the add order of the two-pass reduction)
-constexpr int kRowsPerBlock = 64;
-// scatter rows accumulated per sweep over a block's rows
-constexpr int kGChunk = 8;
+// client rows of one tick_scatter tile (fixed: with the partition of
+// row_tiles.cuh it sets the add order of the ring sums)
+constexpr int kScatterTileRows = 4;
+
+// floats of one tick_scatter pipeline stage: the tile's sent, w and U
+// rows, its eta and its KG wgt columns (a multiple of 4: stages stay
+// 16-byte aligned)
+__host__ __device__ constexpr int scatter_stage_floats(int KG, int ld) {
+  return 3 * kScatterTileRows * ld + kScatterTileRows * (1 + KG);
+}
 
 // v'[d] = flag ? v[d] - sum_a rows[a, d] * dec[a] : v[d]
 // A == 1 scales the single row (rows[0] * dec[0], no 0.0 + x that would
@@ -76,72 +96,202 @@ __global__ void tick_deliver_kernel(const float* __restrict__ w,
   }
 }
 
-// Pass 1 of the scatter.  Block b owns client rows
-// [b * kRowsPerBlock, ...): it writes their w/U outputs and, per column,
-// the partial sums partial[b, g, d] = sum_c wgt[g, c] * sent[c, d] in
-// ascending c.
-__global__ void tick_scatter_rows_kernel(
+// tick_scatter's rows pass.  Block (b, y, z) owns client rows
+// [b * rows_per_block, ...) and the columns of slab y; it walks them in
+// tiles of kScatterTileRows rows, each tile's sent, w and (on done rows,
+// with dp_on) U rows copied into shared memory while the previous tile is
+// used.  From the tile it writes w' and U' (z == 0 only) as 16-byte
+// stores, and adds wgt[g, c] * sent[c, d] for the KG ring rows of chunk z
+// into register sums over all its rows in ascending c; it ends by writing
+// partial[b, g, d].  done for tile t + 2 is read from memory while tile t
+// waits for its copies, so the U copies of tile t + 1 know their rows.
+template <int KG>
+__global__ void __launch_bounds__(512, 2) tick_scatter_rows_kernel(
     const float* __restrict__ sent, const float* __restrict__ w,
     const float* __restrict__ U, const float* __restrict__ wgt,
     const bool* __restrict__ done, const float* __restrict__ eta,
     float* __restrict__ w_out, float* __restrict__ u_out,
-    float* __restrict__ partial, int C, int D, int G, int dp_on) {
-  const int r0 = blockIdx.x * kRowsPerBlock;
-  const int r1 = min(r0 + kRowsPerBlock, C);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    for (int g0 = 0; g0 < G; g0 += kGChunk) {
-      // the sums start from their first term, not from 0.0f: an
-      // all -0.0 column stays -0.0, as in an unpadded torch.sum
-      float acc[kGChunk];
-      const float s0 = sent[(size_t)r0 * D + d];
-#pragma unroll
-      for (int j = 0; j < kGChunk; ++j)
-        acc[j] = g0 + j < G ? __fmul_rn(s0, wgt[(size_t)(g0 + j) * C + r0]) : 0.0f;
-      for (int r = r0 + 1; r < r1; ++r) {
-        const float s = sent[(size_t)r * D + d];
-#pragma unroll
-        for (int j = 0; j < kGChunk; ++j)
-          if (g0 + j < G)
-            acc[j] = __fadd_rn(acc[j], __fmul_rn(s, wgt[(size_t)(g0 + j) * C + r]));
-      }
-#pragma unroll
-      for (int j = 0; j < kGChunk; ++j)
-        if (g0 + j < G)
-          partial[((size_t)blockIdx.x * G + g0 + j) * D + d] = acc[j];
+    float* __restrict__ partial, int C, int D, int G, int slab, int ld,
+    int rows_per_block, int dp_on, int vec) {
+  constexpr int TR = kScatterTileRows;
+  constexpr int NC = rowtiles::kColsPerThread;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ bool sdone[3][TR];
+  const int sf = scatter_stage_floats(KG, ld);
+  const int rb0 = blockIdx.x * rows_per_block;
+  const int rb1 = min(rb0 + rows_per_block, C);
+  const int c0 = blockIdx.y * slab;
+  const int len = min(slab, D - c0);
+  const int g0 = blockIdx.z * KG;
+  const int gn = min(KG, G - g0);
+  const bool rows_out = blockIdx.z == 0;
+  const bool need_u = rows_out && dp_on;
+  const int ntile = (rb1 - rb0 + TR - 1) / TR;
+  const int tid = threadIdx.x;
+
+  auto done_of = [&](int t) {  // thread tid's row of tile t (tid < TR)
+    const int r = rb0 + t * TR + tid;
+    return tid < TR && r < rb1 && done[r];
+  };
+  auto issue = [&](int t) {
+    float* st = smem + (t & 1) * sf;
+    const int r0 = rb0 + t * TR;
+    const int nr = min(TR, rb1 - r0);
+    const size_t off = (size_t)r0 * D + c0;
+    const bool* dn = sdone[t % 3];
+    auto all = [](int) { return true; };
+    rowtiles::copy_rows(st, ld, sent + off, (size_t)D, len, nr, all);
+    if (rows_out)
+      rowtiles::copy_rows(st + TR * ld, ld, w + off, (size_t)D, len, nr, all);
+    if (need_u)
+      rowtiles::copy_rows(st + 2 * TR * ld, ld, U + off, (size_t)D, len, nr,
+                          [dn](int i) { return dn[i]; });
+    float* se = st + 3 * TR * ld;  // eta[TR], then wgt[g0 + k][TR]
+    for (int j = tid; j < nr * (1 + gn); j += blockDim.x) {
+      const int k = j / nr;
+      const int i = j - k * nr;
+      rowtiles::cp_elem(se + k * TR + i,
+                        k == 0 ? eta + r0 + i
+                               : wgt + (size_t)(g0 + k - 1) * C + r0 + i);
     }
-    for (int r = r0; r < r1; ++r) {
-      const size_t i = (size_t)r * D + d;
-      const float s = sent[i];
-      if (done[r]) {
-        w_out[i] = dp_on ? __fadd_rn(w[i], __fmul_rn(eta[r], __fsub_rn(s, U[i])))
-                         : w[i];
-        u_out[i] = 0.0f;
-      } else {
-        w_out[i] = w[i];
-        u_out[i] = s;
+    rowtiles::commit();
+  };
+
+  if (tid < TR) {
+    sdone[0][tid] = done_of(0);
+    sdone[1][tid] = done_of(1);
+  }
+  __syncthreads();
+  issue(0);
+  float acc[NC][KG];
+  for (int t = 0; t < ntile; ++t) {
+    const bool dnext = done_of(t + 2);
+    rowtiles::wait_all();
+    __syncthreads();  // tile t landed; every thread is done with tile t - 1
+    if (tid < TR) sdone[(t + 2) % 3][tid] = dnext;
+    if (t + 1 < ntile) issue(t + 1);
+    const float* st = smem + (t & 1) * sf;
+    const float* se = st + 3 * TR * ld;
+    const bool* dn = sdone[t % 3];
+    const int r0 = rb0 + t * TR;
+    const int nr = min(TR, rb1 - r0);
+    int sh[TR];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+      sh[i] = rowtiles::line_shift(sent + (size_t)(r0 + i) * D + c0);
+
+    if (rows_out) {
+      // w' and U' in 16-byte groups of the shared rows; vec: every array
+      // has sent's line shift, so a full group is one 16-byte store
+      rowtiles::for_groups(nr, ld / 4, [&](int i, int q) {
+        const int lo = q * 4;
+        const size_t off = (size_t)(r0 + i) * D + c0;
+        const int s0 = rowtiles::line_shift(sent + off);
+        if (lo + 4 <= s0 || lo >= s0 + len) return;
+        const bool di = dn[i];
+        const float e = se[i];
+        const float* srow = st + i * ld;
+        const float* wrow = st + (TR + i) * ld;
+        const float* urow = st + (2 * TR + i) * ld;
+        if (vec && lo >= s0 && lo + 4 <= s0 + len) {
+          const float4 s4 = *reinterpret_cast<const float4*>(srow + lo);
+          float4 wo = *reinterpret_cast<const float4*>(wrow + lo);
+          float4 uo = s4;
+          if (di) {
+            uo = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (dp_on) {
+              const float4 u4 = *reinterpret_cast<const float4*>(urow + lo);
+              wo.x = __fadd_rn(wo.x, __fmul_rn(e, __fsub_rn(s4.x, u4.x)));
+              wo.y = __fadd_rn(wo.y, __fmul_rn(e, __fsub_rn(s4.y, u4.y)));
+              wo.z = __fadd_rn(wo.z, __fmul_rn(e, __fsub_rn(s4.z, u4.z)));
+              wo.w = __fadd_rn(wo.w, __fmul_rn(e, __fsub_rn(s4.w, u4.w)));
+            }
+          }
+          *reinterpret_cast<float4*>(w_out + off + (lo - s0)) = wo;
+          *reinterpret_cast<float4*>(u_out + off + (lo - s0)) = uo;
+        } else {
+          const int sw = rowtiles::line_shift(w + off);
+          const int su = rowtiles::line_shift(U + off);
+          for (int p = max(lo, s0); p < min(lo + 4, s0 + len); ++p) {
+            const int c = p - s0;
+            const float s = srow[p];
+            float wo = wrow[sw + c];
+            float uo = s;
+            if (di) {
+              uo = 0.0f;
+              if (dp_on)
+                wo = __fadd_rn(wo, __fmul_rn(e, __fsub_rn(s, urow[su + c])));
+            }
+            w_out[off + c] = wo;
+            u_out[off + c] = uo;
+          }
+        }
+      });
+    }
+
+    // the ring sums: each thread's NC columns, rows in ascending order;
+    // the block's first row starts each sum (no 0.0f + x)
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = tid + k * blockDim.x;
+      if (c >= len) continue;
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        if (i >= nr) break;
+        const float s = st[i * ld + sh[i] + c];
+#pragma unroll
+        for (int j = 0; j < KG; ++j) {
+          if (j >= gn) break;
+          const float term = __fmul_rn(s, se[(1 + j) * TR + i]);
+          acc[k][j] = t == 0 && i == 0 ? term : __fadd_rn(acc[k][j], term);
+        }
       }
     }
+  }
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const int c = tid + k * blockDim.x;
+    if (c >= len) continue;
+#pragma unroll
+    for (int j = 0; j < KG; ++j)
+      if (j < gn)
+        partial[((size_t)blockIdx.x * G + g0 + j) * D + c0 + c] = acc[k][j];
   }
 }
 
-// Pass 2: upd'[g, d] = any_g[g] ? upd[g, d] + sum_b partial[b, g, d]
-// : upd[g, d] (the guarded add: a ring row nobody scattered into stays
-// bitwise untouched).  Blocks are summed in ascending b.
-__global__ void tick_scatter_finish_kernel(const float* __restrict__ partial,
-                                           const float* __restrict__ upd,
-                                           const bool* __restrict__ any_g,
-                                           float* __restrict__ upd_out,
-                                           int nblk, int G, int D) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= G * D) return;
-  const int g = t / D;
-  if (!any_g[g] || nblk == 0) {
-    upd_out[t] = upd[t];
-    return;
+// The rows pass over (row blocks, column slabs, chunks of KG ring rows),
+// then the finish pass.  vec: w, U and both outputs share sent's
+// alignment within 16 bytes, so w' and U' go out as 16-byte stores.
+template <int KG>
+int launch_scatter(const float* sent, const float* w, const float* U,
+                   const float* upd, const float* wgt, const bool* any_g,
+                   const bool* done, const float* eta, float* w_out,
+                   float* u_out, float* upd_out, float* partial, int C, int D,
+                   int G, int dp_on, cudaStream_t stream) {
+  const rowtiles::Partition part =
+      rowtiles::partition(C, kScatterTileRows);
+  if (part.blocks > 0) {
+    const rowtiles::Slabs sl = rowtiles::slabs(D, sizeof(float));
+    const size_t bytes =
+        2 * sizeof(float) * (size_t)scatter_stage_floats(KG, sl.ld);
+    cudaError_t err = cudaFuncSetAttribute(
+        tick_scatter_rows_kernel<KG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(sent) % 16;
+    const int vec = reinterpret_cast<uintptr_t>(w) % 16 == a &&
+                    reinterpret_cast<uintptr_t>(U) % 16 == a &&
+                    reinterpret_cast<uintptr_t>(w_out) % 16 == a &&
+                    reinterpret_cast<uintptr_t>(u_out) % 16 == a;
+    const dim3 grid(part.blocks, sl.count, G > KG ? (G + KG - 1) / KG : 1);
+    tick_scatter_rows_kernel<KG><<<grid, sl.threads, bytes, stream>>>(
+        sent, w, U, wgt, done, eta, w_out, u_out, partial, C, D, G, sl.width,
+        sl.ld, part.rows_per_block, dp_on, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  float vec = partial[t];
-  for (int b = 1; b < nblk; ++b) vec = __fadd_rn(vec, partial[(size_t)b * G * D + t]);
-  upd_out[t] = __fadd_rn(upd[t], vec);
+  return (int)rowtiles::launch_finish(partial, upd, any_g, upd_out,
+                                      part.blocks, G, D, stream);
 }
 
 }  // namespace
@@ -166,25 +316,22 @@ int tf_tick_deliver(const float* w, const float* U, const float* bc_v,
   return (int)cudaGetLastError();
 }
 
-int tf_scatter_blocks(int C) { return (C + kRowsPerBlock - 1) / kRowsPerBlock; }
+int tf_scatter_blocks(int C) {
+  return rowtiles::partition(C, kScatterTileRows).blocks;
+}
 
 int tf_tick_scatter(const float* sent, const float* w, const float* U,
                     const float* upd, const float* wgt, const bool* any_g,
                     const bool* done, const float* eta, float* w_out,
                     float* u_out, float* upd_out, float* partial, int C,
                     int D, int G, int dp_on, cudaStream_t stream) {
-  const int nblk = tf_scatter_blocks(C);
-  if (nblk > 0) {
-    tick_scatter_rows_kernel<<<nblk, kThreads, 0, stream>>>(
-        sent, w, U, wgt, done, eta, w_out, u_out, partial, C, D, G, dp_on);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  if (G * D == 0) return 0;
-  tick_scatter_finish_kernel<<<(G * D + kThreads - 1) / kThreads, kThreads, 0,
-                               stream>>>(partial, upd, any_g, upd_out, nblk, G,
-                                         D);
-  return (int)cudaGetLastError();
+  if (D <= 0) return 0;
+  return G <= 2 ? launch_scatter<2>(sent, w, U, upd, wgt, any_g, done, eta,
+                                    w_out, u_out, upd_out, partial, C, D, G,
+                                    dp_on, stream)
+                : launch_scatter<8>(sent, w, U, upd, wgt, any_g, done, eta,
+                                    w_out, u_out, upd_out, partial, C, D, G,
+                                    dp_on, stream);
 }
 
 }  // extern "C"

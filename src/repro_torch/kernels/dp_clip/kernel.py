@@ -24,8 +24,9 @@ def _dc():
     global _lib
     if _lib is None:
         lib = _build.load("dp_clip")
-        lib.dc_blocks.argtypes = [_I]
-        lib.dc_clip_accumulate.argtypes = [_P, _I, _P, _P, _I, _I, _F, _P]
+        lib.dc_blocks.argtypes = [_I, _I]
+        lib.dc_clip_accumulate.argtypes = [_P, _I, _P, _P, _P, _I, _I, _F,
+                                           _P]
         for fn in (lib.dc_blocks, lib.dc_clip_accumulate):
             fn.restype = _I
         _lib = lib
@@ -42,11 +43,14 @@ def clip_accumulate_kernel(g, clip: float):
     if not clip > 0.0:
         raise ValueError(f"clip must be > 0, got {clip}")
     lib = _dc()
+    bf16 = _BF16[g.dtype]
     out = torch.empty((D,), dtype=torch.float32, device=dev)
-    partial = torch.empty((lib.dc_blocks(N), D), dtype=torch.float32,
+    partial = torch.empty((lib.dc_blocks(N, bf16), D), dtype=torch.float32,
                           device=dev)
+    scale = torch.empty((N,), dtype=torch.float32, device=dev)
     _build.check(lib.dc_clip_accumulate(
-        g.data_ptr(), _BF16[g.dtype], out.data_ptr(), partial.data_ptr(), N,
-        D, float(clip), _build.stream(dev)), "clip_accumulate")
+        g.data_ptr(), bf16, out.data_ptr(), partial.data_ptr(),
+        scale.data_ptr(), N, D, float(clip), _build.stream(dev)),
+        "clip_accumulate")
     LAUNCHES["clip_accumulate"] += 1
     return out

@@ -1,16 +1,20 @@
 """Fused device-tick kernels: delivery gather, bucket apply, ring scatter.
 
 CUDA kernels over the [C, D] client block (``csrc/tick_fused.cu``,
-launched by ``kernel.py``) with plain PyTorch versions (``ref.py``);
-``ops.py`` dispatches by the tensors' device.
+launched by ``kernel.py``) with plain PyTorch versions (``ref.py``;
+``tick_scatter_twin`` also repeats the kernel's add order, so on the CPU
+it gives the kernel's bits); ``ops.py`` dispatches by the tensors'
+device.
 """
 from repro_torch.kernels.tick_fused.ops import (bucket_apply, tick_deliver,
                                                 tick_scatter)
 from repro_torch.kernels.tick_fused.ref import (bucket_apply_ref,
                                                 tick_deliver_ref,
-                                                tick_scatter_ref)
+                                                tick_scatter_ref,
+                                                tick_scatter_twin)
 
 __all__ = [
     "bucket_apply", "tick_deliver", "tick_scatter",
     "bucket_apply_ref", "tick_deliver_ref", "tick_scatter_ref",
+    "tick_scatter_twin",
 ]

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import row_tiles
+
 
 def bucket_apply_ref(v, rows, dec, flag):
     """v [D] server vector, rows [A, D] bucket rows, dec [A] decay
@@ -46,9 +48,35 @@ def tick_scatter_ref(sent, w, U, upd, wgt, any_g, done, eta, *, dp_on):
         vec = torch.sum(sent * wgt[g][:, None], dim=0)
         rows.append(torch.where(any_g[g], upd[g] + vec, upd[g]))
     out = torch.stack(rows) if rows else upd.clone()
+    return (*_settle(sent, w, U, done, eta, dp_on), out)
+
+
+def _settle(sent, w, U, done, eta, dp_on):
+    """tick_scatter's w' and U'."""
     if dp_on:
         w_new = torch.where(done[:, None], w + eta[:, None] * (sent - U), w)
     else:
         w_new = w
-    U_new = torch.where(done[:, None], 0.0, sent)
-    return w_new, U_new, out
+    return w_new, torch.where(done[:, None], 0.0, sent)
+
+
+# client rows of one tick_scatter tile (``csrc/tick_fused.cu``)
+SCATTER_TILE_ROWS = 4
+
+
+def tick_scatter_twin(sent, w, U, upd, wgt, any_g, done, eta, *, dp_on):
+    """``tick_scatter_ref`` with the CUDA kernel's add order in the ring
+    sums (``row_tiles.py``): on CPU tensors it gives the kernel's bits.
+
+    Each product ``wgt[g, c] * sent[c, d]`` is rounded once, then added
+    in blocks of consecutive clients (ascending, from the first) and the
+    block sums by the finish pass's tree; ``upd + sum`` where ``any_g``.
+    w' and U' are ``tick_scatter_ref``'s."""
+    w_new, U_new = _settle(sent, w, U, done, eta, dp_on)
+    C = sent.shape[0]
+    if C == 0:
+        return w_new, U_new, upd.clone()
+    rb, _ = row_tiles.partition(C, SCATTER_TILE_ROWS)
+    terms = wgt.T[:, :, None] * sent[:, None, :]            # [C, G, D]
+    total = row_tiles.finish_tree(row_tiles.block_sums(terms, rb))
+    return w_new, U_new, torch.where(any_g[:, None], upd + total, upd)

@@ -17,6 +17,10 @@ flash attention, SSD scan) against their plain versions at ragged
 shapes, f32 and bf16, within the reference suite's tolerances; the bf16
 attention kernel also at the shapes its tensor-core tiles make hard, and
 its wgmma operand forms (the layout probe) against torch.matmul.
+The row-streaming kernels (``tick_scatter``, ``clip_accumulate``) are
+also held bit for bit to their order-exact twins at ragged and at the
+paths' shapes, from 16-byte aligned and unaligned base pointers, and a
+block partial dropped from their finish pass must read above SUM_RTOL.
 """
 import numpy as np
 import pytest
@@ -473,3 +477,123 @@ def test_ssd_kernel_phases_match_plain_phases(dev, phase, b, s, h, p, n,
         assert _rel(out["y"], want) < SSD_TOL[dtype]
     torch.cuda.synchronize()
     assert LAUNCHES["ssd_scan"] == 0
+
+
+def _scatter_case(dev, C, D, G, share, layout, seed):
+    """tick_scatter's operands on the card: a -0.0 column onto -0.0 ring
+    entries, G - 1 ring rows taking random subsets of the done rows, the
+    last one (G >= 2) empty.  layout "offset": sent, w and U are row
+    views one row into larger tensors, so their base pointers are 16-byte
+    aligned only where D % 4 == 0 (the kernel's 4-byte copies)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    extra = 1 if layout == "offset" else 0
+
+    def rows():
+        return torch.randn((C + extra, D), generator=g, device=dev)[extra:]
+    sent, w, U = rows(), rows(), rows()
+    upd = torch.randn((G, D), generator=g, device=dev)
+    sent[:, 0], upd[:, 0] = -0.0, -0.0
+    done = torch.rand(C, generator=g, device=dev) < share
+    eta = 0.1 * torch.rand(C, generator=g, device=dev)
+    pick = torch.randint(0, max(G - 1, 1), (C,), generator=g, device=dev)
+    masks = torch.stack([done & (pick == r) for r in range(G)])
+    if G >= 2:
+        masks[G - 1] = False
+    wgt = eta[None, :] * masks.float()
+    return sent, w, U, upd, wgt, masks.any(1), done, eta
+
+
+@pytest.mark.parametrize("C,D,G,share,dp_on", [
+    (1, 1, 1, 1.0, True), (3, 13, 2, 0.5, True), (4, 13, 2, 1.0, True),
+    (5, 785, 8, 0.0, True), (1100, 785, 8, 0.5, True),
+    (1100, 13, 32, 0.5, False), (37, 2500, 2, 0.5, True),
+    (16384, 785, 2, 0.5, True), (16384, 785, 8, 0.5, True),
+    (16384, 785, 2, 0.004, True)])
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+def test_tick_scatter_matches_its_twin_bitwise(dev, C, D, G, share, dp_on,
+                                               layout):
+    """The kernel against tick_scatter_twin (its add order, on the CPU)
+    bit for bit; w' and U' against tick_scatter_ref bitwise and the ring
+    rows within SUM_RTOL; an empty ring row untouched; two launches
+    bitwise.  C 16384 at G 2 and 8: the main run's and FedAsync's shapes
+    (0.4% done: a scenario tick); D 2500: three column slabs."""
+    from repro_torch.kernels import LAUNCHES, reset
+    from repro_torch.kernels.tick_fused import (tick_scatter,
+                                                tick_scatter_ref,
+                                                tick_scatter_twin)
+    args = _scatter_case(dev, C, D, G, share, layout, seed=C + D + G)
+    reset()
+    k = tick_scatter(*args, dp_on=dp_on)
+    k2 = tick_scatter(*args, dp_on=dp_on)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tick_scatter"] == 2
+    assert all(_bits_equal(a, b) for a, b in zip(k, k2))
+    twin = tick_scatter_twin(*(a.cpu() for a in args), dp_on=dp_on)
+    assert all(_bits_equal(a.cpu(), b) for a, b in zip(k, twin))
+    p = tick_scatter_ref(*args, dp_on=dp_on)
+    assert _bits_equal(k[0], p[0]) and _bits_equal(k[1], p[1])
+    sent, upd, wgt, any_g = args[0], args[3], args[4], args[5]
+    tol = SUM_RTOL * (wgt.abs() @ sent.abs())
+    assert bool(((k[2] - p[2]).abs() <= tol + 1e-30).all())
+    for gi in range(G):
+        if not bool(any_g[gi]):
+            assert _bits_equal(k[2][gi], upd[gi])
+    assert bool(torch.signbit(k[2][:, 0]).all())
+
+
+@pytest.mark.parametrize("N,D,dtype", [
+    (0, 13, torch.float32), (1, 1, torch.float32), (11, 13, torch.float32),
+    (12, 785, torch.float32), (13, 785, torch.float32),
+    (25, 785, torch.bfloat16), (3300, 785, torch.float32),
+    (6600, 785, torch.bfloat16), (50, 1500, torch.float32),
+    (50, 1500, torch.bfloat16), (6000, 785, torch.float32),
+    (60000, 785, torch.float32), (60000, 785, torch.bfloat16)])
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+def test_clip_accumulate_matches_its_twin_bitwise(dev, N, D, dtype, layout):
+    """The kernel against clip_accumulate_twin (its norm and column add
+    order, on the CPU) bit for bit and against clip_accumulate_ref within
+    SUM_RTOL; two launches bitwise; an all -0.0 column stays -0.0.  N
+    60000 and 6000 at D 785: the DP round and its microbatch; D 1500: two
+    column slabs (scales from the norm pass); "offset": a row view one
+    row into a larger tensor (4-byte copies where D % 4 != 0)."""
+    from repro_torch.kernels import LAUNCHES, reset
+    from repro_torch.kernels.dp_clip import (clip_accumulate,
+                                             clip_accumulate_ref,
+                                             clip_accumulate_twin)
+    g = torch.Generator(device=dev).manual_seed(N + D)
+    extra = 1 if layout == "offset" else 0
+    G = (3.0 * torch.randn((N + extra, D), generator=g, device=dev)).to(
+        dtype)[extra:]
+    G[:, 0] = -0.0
+    reset()
+    k = clip_accumulate(G, clip=0.1)
+    k2 = clip_accumulate(G, clip=0.1)
+    torch.cuda.synchronize()
+    assert LAUNCHES["clip_accumulate"] == 2
+    assert k.dtype == torch.float32 and tuple(k.shape) == (D,)
+    assert _bits_equal(k, k2)
+    assert _bits_equal(k.cpu(), clip_accumulate_twin(G.cpu(), 0.1))
+    p = clip_accumulate_ref(G, 0.1)
+    tol = SUM_RTOL * clip_accumulate_ref(G.abs(), 0.1)
+    assert bool(((k - p).abs() <= tol + 1e-30).all())
+    if N:
+        assert bool(torch.signbit(k[0]))
+
+
+@pytest.mark.parametrize("kernel", ["tick_scatter", "clip_accumulate"])
+def test_sum_limit_catches_a_dropped_block_partial(dev, kernel):
+    """The planted fault chip_smoke.py must catch: the finish pass with
+    one block's partial left out reads above SUM_RTOL * sum|terms| at the
+    paths' shapes (C 16384, G 2; N 60000, D 785)."""
+    import chip_smoke as cs
+    if kernel == "tick_scatter":
+        from repro_torch.kernels.tick_fused import tick_scatter_ref
+        args = _scatter_case(dev, 16384, 785, 2, 0.5, "aligned", seed=7)
+        ratio = cs.scatter_planted_drop(args, tick_scatter_ref(
+            *args, dp_on=True)[2])
+    else:
+        from repro_torch.kernels.dp_clip import clip_accumulate_ref
+        g = torch.Generator(device=dev).manual_seed(5)
+        G = 3.0 * torch.randn((60000, 785), generator=g, device=dev)
+        ratio = cs.clip_planted_drop(G, 0.1, clip_accumulate_ref(G, 0.1))
+    assert ratio > 1.0

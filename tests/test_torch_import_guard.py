@@ -1,7 +1,8 @@
 """The port stands alone: no jax, no reference package, no CPU fallback.
 
-``repro_torch``, ``chip_smoke.py``, ``chip_profile.py`` and
-``chip_walls.py`` import torch, numpy and the standard library only; a
+``repro_torch``, ``chip_smoke.py``, ``chip_profile.py``,
+``chip_walls.py`` and ``chip_passes.py`` import torch, numpy and the
+standard library only; a
 fresh interpreter that imports the port and runs a small CPU simulation
 loads neither ``jax`` nor any ``repro`` module; and the entry point
 refuses to run without CUDA unless the caller asks for the CPU.
@@ -22,7 +23,8 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 def _port_files():
     out = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
                                            "chip_profile.py",
-                                           "chip_walls.py")]
+                                           "chip_walls.py",
+                                           "chip_passes.py")]
     for dirpath, _, files in os.walk(PORT):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
