@@ -54,11 +54,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
 9. ``ssm_layer``: one mamba2-780m mixer at full width (B = 4, S =
    2048), through the kernel against the plain chunked SSD on the card,
    with and without the final state; its warm wall through the kernel
-   must be below its wall through the plain SSD.
+   must be below its wall through the plain SSD;
+10. ``host_engine``: the host-loop cohort engine (``CohortSimulator``)
+   at the main run's configuration, then under phase 4's two scenarios
+   for one round each, each bit for bit against the device engine with
+   operand noise (the model, the eval losses, ``w``/``U``/``v``, the
+   integer state and the op census), with its wall, ms per tick and
+   kernel launches (counts zeroed before each host run, read after);
+11. ``event``: the discrete-event simulator at D = 785 over C = 64
+   clients (the main run's data; the population is cut, the engine
+   being per-client Python) in the three-way-parity configuration (d =
+   1, a ``sample_seed`` task, sizes [10, 20, 30, 40], 4 rounds): its
+   integers equal both cohort engines', its model within 1e-4 of
+   theirs, the cohort engines bit for bit; and against its own CPU run.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (launches from the path that runs each kernel most: the tick kernels'
-from the scenario runs, with the main run's beside them), and, last,
+from the scenario runs, with the main run's and the host engine's beside
+them), and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line; so does a machine without CUDA.
 """
@@ -621,14 +634,18 @@ def phase_kernels(dev, logs):
 
 def make_sim(dev, X, y, *, C, sizes, etas, d, seed, block, l2,
              dp_clip=0.0, dp_sigma=0.0, dp_round_clip=0.0, sample_seed=0,
-             scenario=None, strategy=None, dp_rng="operand"):
+             scenario=None, strategy=None, dp_rng="operand", host=False):
+    """The device engine, or with ``host`` the host-loop engine (operand
+    noise only)."""
     import repro_torch as rt
     task = rt.LogRegTask(X, y, l2=l2, dp_clip=dp_clip, dp_sigma=dp_sigma,
                          sample_seed=sample_seed)
-    return rt.DeviceCohortSimulator(
-        task, n_clients=C, sizes_per_client=sizes, round_stepsizes=etas,
-        d=d, seed=seed, block=block, dp_round_clip=dp_round_clip,
-        scenario=scenario, strategy=strategy, dp_rng=dp_rng, device=dev)
+    kw = dict(n_clients=C, sizes_per_client=sizes, round_stepsizes=etas,
+              d=d, seed=seed, block=block, dp_round_clip=dp_round_clip,
+              scenario=scenario, strategy=strategy, device=dev)
+    if host:
+        return rt.CohortSimulator(task, **kw)
+    return rt.DeviceCohortSimulator(task, dp_rng=dp_rng, **kw)
 
 
 def timed_run(sim, rounds, eval_every):
@@ -832,7 +849,9 @@ def phase_main(dev, X, y, kw):
             print(f"phase main: dp rows={len(tel.dp or [])} "
                   f"max_epsilon={max(eps) if eps else None}")
         out[dp_rng] = counts
-    return out["operand"]
+        if dp_rng == "operand":
+            fp = fingerprint(sim, res)
+    return out["operand"], fp
 
 
 def phase_scenarios(dev, X, y, kw):
@@ -840,13 +859,10 @@ def phase_scenarios(dev, X, y, kw):
     strategies with in-kernel noise (the slice's path: counts zeroed
     before its first run, read after its last), each repeated with
     operand noise: the integer state must be identical."""
-    import dataclasses
     import torch
-    import repro_torch as rt
     from repro_torch.kernels import launches
-    from repro_torch.scenarios import get_scenario
 
-    runs = {}
+    runs, fps = {}, {}
     shares = []
     launches.reset()
     for dp_rng in ("in_kernel", "operand"):
@@ -854,14 +870,8 @@ def phase_scenarios(dev, X, y, kw):
             path_counts = dict(launches.LAUNCHES)
             launches.reset()
         for sc in SCENARIOS:
-            scn = get_scenario(sc["scenario"])
-            if sc["ring_cap"] is not None:
-                scn = dataclasses.replace(scn, ring_cap=sc["ring_cap"])
-            kind, hp = sc["strategy"]
-            strat = (rt.core.FedAsyncStrategy(**hp) if kind == "fedasync"
-                     else rt.core.FedBuffStrategy(**hp))
-            sim = make_sim(dev, X, y, block=sc["block"], scenario=scn,
-                           strategy=strat, dp_rng=dp_rng, **kw)
+            sim = make_sim(dev, X, y, dp_rng=dp_rng, **scenario_kw(sc),
+                           **kw)
             eng = sim.engine
             noise_ms = time_noise(eng)
             masked = count_masked(eng) if dp_rng == "in_kernel" else None
@@ -913,6 +923,8 @@ def phase_scenarios(dev, X, y, kw):
                       f"min={min(share)} launches={len(share)}")
             runs[(sc["tag"], dp_rng)] = (int_state(eng), eng.fused_iters,
                                          loss)
+            if dp_rng == "operand":
+                fps[sc["tag"]] = fingerprint(sim, res)
     for name in ("bucket_apply", "tick_deliver", "tick_scatter",
                  "cohort_clip_noise_prng"):
         if path_counts[name] <= 0:
@@ -930,7 +942,21 @@ def phase_scenarios(dev, X, y, kw):
     print(f"phase scenarios: masked share of the "
           f"{len(shares)} cohort_clip_noise_prng launches: "
           f"mean={statistics.fmean(shares)} max={max(shares)}")
-    return path_counts
+    return path_counts, fps
+
+
+def scenario_kw(sc):
+    """The scenario, strategy and block of one of ``SCENARIOS``."""
+    import dataclasses
+    import repro_torch as rt
+    from repro_torch.scenarios import get_scenario
+    scn = get_scenario(sc["scenario"])
+    if sc["ring_cap"] is not None:
+        scn = dataclasses.replace(scn, ring_cap=sc["ring_cap"])
+    kind, hp = sc["strategy"]
+    strat = (rt.core.FedAsyncStrategy(**hp) if kind == "fedasync"
+             else rt.core.FedBuffStrategy(**hp))
+    return dict(block=sc["block"], scenario=scn, strategy=strat)
 
 
 def phase_small_scenario(dev):
@@ -974,6 +1000,179 @@ def phase_small_scenario(dev):
               f"losses card={lg.tolist()} cpu={lc.tolist()} "
               f"max_rel={float(np.max(np.abs(lg - lc) / np.abs(lc)))} "
               f"model_max_abs={float(np.abs(mg - mc).max())} wall_s={wall}")
+
+
+def fingerprint(sim, res):
+    """What two cohort engines must share bit for bit: the integer
+    counters and per-client state, the op census, the eval losses and
+    the ``w``/``U``/``v`` blocks (kept on the card)."""
+    import numpy as np
+    import torch
+    st, tel = sim.engine.state, res["telemetry"]
+
+    def ints(x):
+        x = x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+        return x.astype(np.int64).tolist()
+
+    return {
+        "ints": {"ticks": tel.ticks, "rounds": tel.rounds,
+                 "messages": tel.messages, "broadcasts": tel.broadcasts,
+                 "participation": ints(tel.participation),
+                 "bytes_up": ints(tel.bytes_up),
+                 "staleness_hist": ints(tel.staleness_hist),
+                 "overflow_hwm": tel.overflow_hwm,
+                 "far_messages": tel.far_messages, "ops": dict(tel.ops),
+                 **{f: ints(getattr(st, f))
+                    for f in ("i", "h", "k", "credit")}},
+        "losses": [h["loss"] for h in res["history"]]
+        + [res["final"]["loss"]],
+        "blocks": {f: getattr(st, f) for f in ("w", "U", "v")},
+    }
+
+
+def same_run(host, device, what: str) -> None:
+    """Fail unless the host engine's fingerprint is the device engine's."""
+    bad = [k for k in device["ints"] if host["ints"][k] != device["ints"][k]]
+    if bad:
+        fail(f"{what}: integer fields {bad} differ between the host and "
+             f"device engines")
+    if host["losses"] != device["losses"]:
+        fail(f"{what}: losses {host['losses']} vs device "
+             f"{device['losses']}")
+    for f in ("w", "U", "v"):
+        if not bits_equal(host["blocks"][f], device["blocks"][f]):
+            fail(f"{what}: {f} differs between the host and device engines")
+
+
+HOST_PATH = ("bucket_apply", "tick_deliver", "tick_scatter",
+             "cohort_clip_noise")
+
+
+def phase_host_engine(dev, X, y, kw, main_fp, scenario_fps):
+    """Phase 10: the host-loop engine at the main configuration, then
+    under phase 4's scenarios for one round each, each bit for bit
+    against the device engine with operand noise (phase 3's run, phase
+    4's where it ran one round, else a one-round device run here).
+    Launch counts are zeroed before each host run and read after it;
+    returns their sum."""
+    from repro_torch.kernels import launches
+
+    m = MAIN
+    total = dict.fromkeys(launches.LAUNCHES, 0)
+    runs = [("main", dict(block=m["block"]), m["rounds"], m["rounds"] // 2,
+             main_fp)]
+    for sc in SCENARIOS:
+        runs.append((sc["tag"], scenario_kw(sc), 1, 1,
+                     scenario_fps[sc["tag"]] if sc["rounds"] == 1 else None))
+    for tag, extra, rounds, every, want in runs:
+        if want is None:
+            dsim = make_sim(dev, X, y, dp_rng="operand", **extra, **kw)
+            dres, dwall = timed_run(dsim, rounds, every)
+            want = fingerprint(dsim, dres)
+            print(f"phase host_engine {tag}: device engine (operand) "
+                  f"rounds={rounds} ticks={dres['telemetry'].ticks} "
+                  f"wall_s={dwall}")
+        sim = make_sim(dev, X, y, host=True, **extra, **kw)
+        launches.reset()
+        res, wall = timed_run(sim, rounds, every)
+        counts = dict(launches.LAUNCHES)
+        for k, n in counts.items():
+            total[k] += n
+        if res["final"]["round"] < rounds:
+            fail(f"host_engine {tag} reached round {res['final']['round']}")
+        if tag == "main":
+            missing = [k for k in HOST_PATH if counts[k] <= 0]
+            if missing:
+                fail(f"host_engine main: kernels {missing} not launched")
+        if counts["cohort_clip_noise_prng"]:
+            fail(f"host_engine {tag}: launched the in-kernel noise")
+        same_run(fingerprint(sim, res), want, f"host_engine {tag}")
+        tel = res["telemetry"]
+        print(f"phase host_engine {tag}: C={sim.engine.C} D={sim.engine.D} "
+              f"block={extra['block']} rounds={rounds} ticks={tel.ticks} "
+              f"wall_s={wall} ms_per_tick={1e3 * wall / tel.ticks} "
+              f"messages={tel.messages} far_messages={tel.far_messages} "
+              f"ops={tel.ops} losses={[h['loss'] for h in res['history']]}"
+              f" wall_phases={tel.wall} launches={counts} bitwise against "
+              f"the device engine: yes")
+    missing = [k for k in HOST_PATH if total[k] <= 0]
+    if missing:
+        fail(f"host_engine: kernels {missing} not launched")
+    print(f"phase host_engine: launches over the host runs {total}")
+    return total
+
+
+# the event simulator's card run: the three-way-parity configuration of
+# the reference (tests/test_cohort_parity.py) at C = 64
+EVENT = dict(C=64, sizes=[10, 20, 30, 40], etas=[0.1, 0.08, 0.06, 0.05],
+             speeds=[1.0, 0.8, 1.2, 0.9], rounds=4, sample_seed=13)
+# event vs cohort: bucketed vs per-message server adds reorder f32 sums
+# (the reference's bound).  The event engine on the card against its CPU
+# run reorders f32 sums too (the 785-term dot products, exp and log1p
+# rounding), compounded over 100 SGD steps a client: the same bound.
+# At this width the port's CPU run is 4.1e-5 off the reference's own
+# (max |w| 8.8), and an H100 run 2.3e-5 off the CPU run
+EVENT_ATOL = 1e-4
+
+
+def phase_event(dev, X, y):
+    """Phase 11: the event simulator on the card against both cohort
+    engines on the card (three-way parity at d = 1) and against its own
+    CPU run."""
+    import numpy as np
+    import torch
+    import repro_torch as rt
+
+    e = EVENT
+    C = e["C"]
+    kw = dict(n_clients=C, sizes_per_client=[e["sizes"]] * C,
+              round_stepsizes=e["etas"], d=1, seed=0,
+              speeds=list(np.tile(e["speeds"], C // len(e["speeds"]))))
+    task = rt.LogRegTask(X, y, l2=1.0 / X.shape[0],
+                         sample_seed=e["sample_seed"])
+    out = {}
+    for name, cls, where in (("event", rt.AsyncFLSimulator, dev),
+                             ("host", rt.CohortSimulator, dev),
+                             ("device", rt.DeviceCohortSimulator, dev),
+                             ("event_cpu", rt.AsyncFLSimulator,
+                              torch.device("cpu"))):
+        sim = cls(task, **kw, device=where)
+        res, wall = timed_run(sim, e["rounds"], 1)
+        tel = res["telemetry"]
+        out[name] = dict(
+            ints={"round": res["final"]["round"], "messages": tel.messages,
+                  "broadcasts": tel.broadcasts,
+                  "participation": tel.participation.tolist(),
+                  "staleness_hist": tel.staleness_hist.tolist()},
+            model=torch.cat([res["model"]["w"].reshape(-1),
+                             res["model"]["b"].reshape(1)]).cpu(),
+            wall=wall)
+        print(f"phase event: {name} C={C} D={X.shape[1] + 1} "
+              f"rounds={e['rounds']} wall_s={wall} "
+              f"messages={tel.messages} broadcasts={tel.broadcasts}")
+    ev = out["event"]
+    if ev["ints"]["round"] != e["rounds"]:
+        fail(f"event: reached round {ev['ints']['round']}")
+    for name in ("host", "device", "event_cpu"):
+        if out[name]["ints"] != ev["ints"]:
+            fail(f"event: integers differ from the {name} run: "
+                 f"{out[name]['ints']} vs {ev['ints']}")
+    if not bits_equal(out["host"]["model"], out["device"]["model"]):
+        fail("event: the two cohort engines' models differ on the card")
+    gap = float((ev["model"] - out["device"]["model"]).abs().max())
+    if not gap < EVENT_ATOL:
+        fail(f"event: model off the cohort engines' by {gap}")
+    cpu_gap = float((ev["model"] - out["event_cpu"]["model"]).abs().max())
+    if not cpu_gap < EVENT_ATOL:
+        fail(f"event: card vs CPU model off by {cpu_gap}")
+    print(f"phase event: integers equal across event / host / device / "
+          f"event on the CPU {ev['ints']['round']} rounds "
+          f"{ev['ints']['messages']} messages; event vs cohort max_abs="
+          f"{gap} (limit {EVENT_ATOL}); cohort engines bitwise; event "
+          f"card vs CPU max_abs={cpu_gap} (limit {EVENT_ATOL}); max |w|="
+          f"{float(ev['model'].abs().max())}; event wall_s={ev['wall']} "
+          f"cohort host wall_s={out['host']['wall']} device wall_s="
+          f"{out['device']['wall']}")
 
 
 def timed_calls(fn, name: str, per_call: int, what: str, n: int = 3):
@@ -1696,15 +1895,22 @@ def main() -> int:
     X, y, kw = main_inputs()
     print(f"phase main: setup_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
-    counts = phase_main(dev, X, y, kw)
+    counts, main_fp = phase_main(dev, X, y, kw)
     print(f"phase main: wall_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
-    scn_counts = phase_scenarios(dev, X, y, kw)
+    scn_counts, scn_fps = phase_scenarios(dev, X, y, kw)
     print(f"phase scenarios: wall_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     phase_small_scenario(dev)
     print(f"phase small_scenario_agreement: wall_s="
           f"{time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    host_counts = phase_host_engine(dev, X, y, kw, main_fp, scn_fps)
+    del main_fp, scn_fps
+    print(f"phase host_engine: wall_s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    phase_event(dev, X, y)
+    print(f"phase event: wall_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     G, dp_counts, dp_split = phase_dp_round(dev, X, y)
     print(f"phase dp_round: wall_s={time.perf_counter() - t0}")
@@ -1719,7 +1925,8 @@ def main() -> int:
     print(f"phase model_kernels: wall_s={time.perf_counter() - t0}")
     # launches: each kernel's count from the path that runs it most: the
     # scenario runs (in-kernel noise) for the tick kernels, each on every
-    # tick or completion tick there (the main run's count beside them),
+    # tick or completion tick there (the main run's count and the host
+    # engine's beside them),
     # the main run for the operand noise kernel, the DP round (split by
     # N), the attention layer and the SSM layer for the model-scale three
     path_counts = dict(bucket_apply=scn_counts, tick_deliver=scn_counts,
@@ -1731,12 +1938,14 @@ def main() -> int:
         k["launches"] = path_counts.get(k["name"], counts)[k["name"]]
         if k["name"] in ("bucket_apply", "tick_deliver", "tick_scatter"):
             k["launches_main"] = counts[k["name"]]
+        if k["name"] in HOST_PATH:
+            k["launches_host"] = host_counts[k["name"]]
         if k["name"] == "clip_accumulate":
             k.update(dp_split)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # then each kernel's own extra keys (other shapes and dtypes, the
-    # main run's launches)
+    # main run's and the host engine's launches)
     print(json.dumps({"kernels": [
         {**{key: k[key] for key in keys},
          **{key: v for key, v in k.items() if key not in keys}}

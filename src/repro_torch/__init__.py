@@ -2,15 +2,19 @@
 
 The paper's protocol (increasing round sizes, diminishing round step
 sizes, the ``d`` wait gate, round-level Gaussian DP noise) on the
-device-resident cohort engine, with its per-tick ``[C, D]`` work in
-hand-written CUDA kernels (``repro_torch.kernels``, sources in
-``csrc/``).  The port imports torch, numpy and the standard library only;
+reference's three engines — the device-resident and host-loop cohort
+engines, whose per-tick ``[C, D]`` work runs in hand-written CUDA kernels
+(``repro_torch.kernels``, sources in ``csrc/``), and the discrete-event
+simulator (``make_simulator`` switches) — and the paper's Theorem-4
+accountant (``repro_torch.dp``).  The port imports torch, numpy and the standard library only;
 it is checked against the JAX reference by the tests, which import both.
 """
-from repro_torch.cohort import (DeviceCohortEngine, DeviceCohortSimulator,
+from repro_torch.cohort import (CohortEngine, CohortSimulator,
+                                DeviceCohortEngine, DeviceCohortSimulator,
                                 make_simulator)
-from repro_torch.core import LogRegTask
+from repro_torch.core import AsyncFLSimulator, LogRegTask, run_sync_baseline
 from repro_torch.data import make_binary_dataset
 
-__all__ = ["DeviceCohortEngine", "DeviceCohortSimulator", "LogRegTask",
-           "make_binary_dataset", "make_simulator"]
+__all__ = ["AsyncFLSimulator", "CohortEngine", "CohortSimulator",
+           "DeviceCohortEngine", "DeviceCohortSimulator", "LogRegTask",
+           "make_binary_dataset", "make_simulator", "run_sync_baseline"]

@@ -1,11 +1,17 @@
-"""The device-resident cohort engine: the whole client population as
-``[C, D]`` blocks on the card, the paper's protocol tick by tick."""
+"""The cohort engines: the whole client population as ``[C, D]`` blocks,
+the paper's protocol tick by tick — the host-loop engine (``engine.py``,
+Python control flow per tick) and the device-resident one
+(``device.py``, the integer protocol on the card too)."""
 from repro_torch.cohort.device import DeviceCohortEngine, resolve_device
-from repro_torch.cohort.simulator import (DeviceCohortSimulator,
+from repro_torch.cohort.engine import CohortEngine
+from repro_torch.cohort.simulator import (CohortSimulator,
+                                          DeviceCohortSimulator,
                                           as_cohort_task, make_simulator)
-from repro_torch.cohort.state import DeviceCohortState
+from repro_torch.cohort.state import (BroadcastRing, CohortState,
+                                      DeviceCohortState, UpdateBuckets)
 from repro_torch.cohort.tasks import CohortLogRegTask
 
-__all__ = ["CohortLogRegTask", "DeviceCohortEngine", "DeviceCohortSimulator",
-           "DeviceCohortState", "as_cohort_task", "make_simulator",
-           "resolve_device"]
+__all__ = ["BroadcastRing", "CohortEngine", "CohortLogRegTask",
+           "CohortSimulator", "CohortState", "DeviceCohortEngine",
+           "DeviceCohortSimulator", "DeviceCohortState", "UpdateBuckets",
+           "as_cohort_task", "make_simulator", "resolve_device"]

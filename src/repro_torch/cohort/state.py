@@ -1,4 +1,15 @@
-"""Cohort-engine state: protocol scalars and the device-resident state.
+"""Cohort-engine state: the host engine's and the device-resident one.
+
+``CohortState`` is the host-loop engine's population (``repro_torch.
+cohort.engine``): the ``[C, D]`` blocks ``w``/``U`` and the server model
+``v`` as tensors on the engine's device, the per-client protocol
+counters (round ``i``, in-round iteration ``h``, freshest broadcast
+``k``, iteration credit) as numpy int64 on the host, where they drive
+the Python control flow of every tick.  Its messages are metadata plus
+payload: ``UpdateBuckets`` keeps in-flight updates pre-weighted and
+summed by arrival tick (near ring and far tier), with the (round,
+client, k_send) triples Algorithm 3's H set needs as host metadata;
+``BroadcastRing`` the few outstanding broadcasts.
 
 ``DeviceCohortState`` holds the whole protocol on the device — the
 population blocks ``w``/``U`` ``[C, D]``, the per-client counters, the
@@ -14,7 +25,8 @@ engines, and a single divergent ``floor(credit)`` changes the schedule.
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 
@@ -160,3 +172,76 @@ class DeviceCohortState(NamedTuple):
     # the ops census above still counts TICKS, this counts ITERATIONS
     # after tick coalescing, so block_iters <= loop_iters <= ticks.
     iters: Any             # [2]       i32 [loop_iters, block_iters]
+
+
+@dataclass
+class CohortState:
+    """Host-engine population: device blocks + host counters (axis C)."""
+    w: Any                 # [C, D] client models (device)
+    U: Any                 # [C, D] round-update accumulators (device)
+    v: Any                 # [D] server model (device)
+    i: np.ndarray          # [C] current round (host, int64)
+    h: np.ndarray          # [C] iterations done in round i (host)
+    k: np.ndarray          # [C] freshest broadcast counter seen (host)
+    credit: np.ndarray     # [C] fixed-point iteration credit (host)
+    server_k: int = 0      # completed-round counter (Algorithm 3's k)
+    tick: int = 0
+
+    def blocked(self, d: int) -> np.ndarray:
+        """Wait gate, vectorized: block while i >= k + d (Supp. B.2)."""
+        return self.i >= self.k + d
+
+
+@dataclass
+class UpdateBuckets:
+    """In-flight client->server updates, bucket-summed by arrival tick.
+
+    NEAR buckets (arrival offset inside the device engine's update ring)
+    and FAR ones (past it: the device engine's overflow bucket) are kept
+    apart, so the host engine applies ``far + near`` in the device
+    engine's order (``overflow + ring slot``).  A payload is a ``[D]``
+    tensor, or ``[R, D]`` by sender k under FedAsync."""
+    contrib: Dict[int, Any] = field(default_factory=dict)   # tick -> [D]
+    far_contrib: Dict[int, Any] = field(default_factory=dict)
+    meta: Dict[int, List[Tuple[int, int, int]]] = field(default_factory=dict)
+
+    def get(self, tick: int, far: bool = False):
+        """Current payload at ``tick`` (None when empty)."""
+        return (self.far_contrib if far else self.contrib).get(tick)
+
+    def put(self, tick: int, vec, pairs: List[Tuple[int, int, int]],
+            far: bool = False) -> None:
+        """Overwrite the payload at ``tick`` and append its (round,
+        client, k_send) triples."""
+        (self.far_contrib if far else self.contrib)[tick] = vec
+        self.meta.setdefault(tick, []).extend(pairs)
+
+    def pop(self, tick: int):
+        """-> (far payload or None, near payload or None, triples)."""
+        return (self.far_contrib.pop(tick, None),
+                self.contrib.pop(tick, None), self.meta.pop(tick, []))
+
+    def __len__(self) -> int:
+        return sum(len(m) for m in self.meta.values())
+
+
+@dataclass
+class BroadcastRing:
+    """Outstanding server->client broadcasts (few: the gate bounds the
+    lag): ``{"k": int, "v": [D] tensor, "at": [C] int64 arrival ticks}``."""
+    pending: List[dict] = field(default_factory=list)
+
+    def push(self, k: int, v, arrive_ticks: np.ndarray) -> None:
+        self.pending.append({"k": k, "v": v, "at": arrive_ticks})
+
+    def due(self, tick: int):
+        """Broadcasts with any arrival <= tick, ascending k."""
+        return sorted((b for b in self.pending if (b["at"] <= tick).any()),
+                      key=lambda b: b["k"])
+
+    def retire(self, tick: int) -> None:
+        horizon = np.iinfo(np.int64).max
+        for b in self.pending:
+            b["at"][b["at"] <= tick] = horizon
+        self.pending = [b for b in self.pending
+                        if (b["at"] < horizon).any()]

@@ -5,12 +5,13 @@ numpy arrays (``np.asarray`` of each leaf / field).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.cohort.state import DeviceCohortState
+from repro_torch.cohort.state import (BroadcastRing, CohortState,
+                                      DeviceCohortState, UpdateBuckets)
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32}
@@ -64,3 +65,41 @@ def state_from_jax(np_state, device=None) -> DeviceCohortState:
     return DeviceCohortState(**{f: _tensor(fields[f], device)
                                 for f in DeviceCohortState._fields})
 
+
+
+def host_state_from_jax(state, updates, bcasts, device=None
+                        ) -> Tuple[CohortState, UpdateBuckets, BroadcastRing]:
+    """The reference host engine's ``CohortState``, ``UpdateBuckets`` and
+    ``BroadcastRing`` — their fields as numpy copies (``w``/``U``/``v``,
+    the bucket payloads and broadcast snapshots as arrays) — -> the
+    port's, the float blocks on ``device``, the counters as int64 numpy."""
+    ints = {f: np.array(getattr(state, f), dtype=np.int64)
+            for f in ("i", "h", "k", "credit")}
+    st = CohortState(w=_tensor(state.w, device), U=_tensor(state.U, device),
+                     v=_tensor(state.v, device), server_k=int(state.server_k),
+                     tick=int(state.tick), **ints)
+    upd = UpdateBuckets(
+        contrib={int(t): _tensor(v, device)
+                 for t, v in updates.contrib.items()},
+        far_contrib={int(t): _tensor(v, device)
+                     for t, v in updates.far_contrib.items()},
+        meta={int(t): [tuple(int(x) for x in p) for p in pairs]
+              for t, pairs in updates.meta.items()})
+    bc = BroadcastRing(pending=[
+        {"k": int(b["k"]), "v": _tensor(b["v"], device),
+         "at": np.array(b["at"], dtype=np.int64)} for b in bcasts.pending])
+    return st, upd, bc
+
+
+def event_models_from_jax(sim, server_v: Mapping[str, Any],
+                          client_ws: Sequence[Mapping[str, Any]]):
+    """Install numpy copies of a reference event simulator's models —
+    the server's ``v`` and each client's ``w`` (logreg params) — into the
+    port's ``AsyncFLSimulator`` ``sim`` on its device; returns ``sim``."""
+    if len(client_ws) != len(sim.clients):
+        raise ValueError(f"{len(client_ws)} client models for "
+                         f"{len(sim.clients)} clients")
+    sim.server.v = params_from_jax(server_v, sim.device)
+    for cl, w in zip(sim.clients, client_ws):
+        cl.w = params_from_jax(w, sim.device)
+    return sim

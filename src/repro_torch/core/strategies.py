@@ -91,6 +91,19 @@ class FedAsyncStrategy(AggregationStrategy):
             raise ValueError(f"FedAsync decay {self.decay!r} not in "
                              f"{FEDASYNC_DECAYS}")
 
+    def weight(self, tau: int) -> float:
+        """``alpha * s(tau)`` in Python floats, tau clamped at 0 — the
+        event simulator's server weight for one update."""
+        t = float(max(tau, 0))
+        if self.decay == "constant":
+            s = 1.0
+        elif self.decay == "hinge":
+            s = (1.0 if t <= self.hinge_b
+                 else 1.0 / (self.hinge_a * (t - self.hinge_b) + 1.0))
+        else:
+            s = (t + 1.0) ** (-self.poly_a)
+        return self.alpha * s
+
     def decay_weights(self, tau: torch.Tensor) -> torch.Tensor:
         tf = tau.to(torch.float32)
         alpha = torch.tensor(_f32(self.alpha), device=tau.device)

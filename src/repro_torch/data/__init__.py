@@ -1,3 +1,4 @@
-from repro_torch.data.convex import make_binary_dataset
+from repro_torch.data.convex import (biased_split, make_binary_dataset,
+                                     unbiased_split)
 
-__all__ = ["make_binary_dataset"]
+__all__ = ["biased_split", "make_binary_dataset", "unbiased_split"]

@@ -231,3 +231,43 @@ def normal(key: torch.Tensor, shape: Sequence[int],
     """``jax.random.normal(key, shape, float32)``."""
     u = uniform(key, shape, _NORMAL_LO, 1.0, device=device)
     return _SQRT2_F32 * erf_inv(u)
+
+
+_INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32), vmapped
+    over a batch of keys ``[..., 2]`` -> ``[..., *shape]`` (int64 tensor)
+    on the keys' device.
+
+    jax's 32-bit path: the key splits in two, each half gives 32 random
+    bits per element (``hi``, ``lo``), and with ``span = maxval - minval``
+    (1 when ``maxval <= minval``) and ``mult = (2**16 % span)**2 % span``
+    (the square wraps at 32 bits too, so ``mult`` is 0 for spans past
+    2**16) the draw is ``minval + ((hi % span) * mult + lo % span) % span``,
+    every product and sum wrapping at 32 bits as uint32 arithmetic does.
+    The bounds are clipped to int32, as jax converts them."""
+    lo_v = min(max(int(minval), _INT32_MIN), _INT32_MAX)
+    hi_v = min(max(int(maxval), _INT32_MIN), _INT32_MAX)
+    span = 1 if hi_v <= lo_v else (hi_v - lo_v) & MASK32
+    mult = ((2 ** 16 % span) ** 2 & MASK32) % span   # 0 past span 2**16
+    batch = key.shape[:-1]
+    halves = split_batch(key.reshape(-1, 2))                  # [N, 2, 2]
+    higher = keys_bits(halves[:, 0], shape)
+    lower = keys_bits(halves[:, 1], shape)
+    off = ((higher % span) * mult) & MASK32
+    off = ((off + lower % span) & MASK32) % span
+    out = (lo_v + off) & MASK32                 # int32 add, wrapping
+    out = torch.where(out > _INT32_MAX, out - 2 ** 32, out)
+    return out.reshape(tuple(batch) + tuple(shape))
+
+
+def split_batch(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.vmap(lambda k: jax.random.split(k, num))(keys)``: keys
+    ``[N, 2]`` -> ``[N, num, 2]``."""
+    idx = torch.arange(num, dtype=torch.int64, device=keys.device)
+    x0, x1 = threefry2x32(keys[:, 0:1], keys[:, 1:2], idx >> 32,
+                          idx & MASK32)
+    return torch.stack([x0, x1], dim=-1)

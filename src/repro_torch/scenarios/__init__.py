@@ -9,7 +9,7 @@ from repro_torch.scenarios.registry import (Scenario, ScenarioPlan,
                                             legacy_latency_scenario,
                                             register_scenario,
                                             scenario_from_trace,
-                                            scenario_names)
+                                            scenario_names, scenario_plan)
 from repro_torch.scenarios.tables import (LatencyTable, alias_sample,
                                           alias_sample_rows, key_uniforms,
                                           vose_alias)
@@ -19,4 +19,5 @@ __all__ = ["AlwaysOn", "Churn", "Diurnal", "LatencyTable", "RegionalChurn",
            "TableAssignment", "alias_sample", "alias_sample_rows",
            "draw_table_ids", "get_scenario", "key_uniforms",
            "legacy_latency_scenario", "register_scenario",
-           "scenario_from_trace", "scenario_names", "vose_alias"]
+           "scenario_from_trace", "scenario_names", "scenario_plan",
+           "vose_alias"]

@@ -10,9 +10,13 @@ and keeps them on the device (``_EpochCache``).  Availability gates
 compute and upload: an off client accrues no credit, takes no step and
 sends no update; broadcast pickup is never gated.
 
-The continuous-time ``windows`` forms that the event simulator
-integrates (diurnal and renewal windows) belong to the event simulator's
-slice and raise here.
+``windows(C, seed)`` is the continuous-time form the event simulator
+integrates (on-time over an interval and its inverse), for the models
+whose windows are deterministic: diurnal windows exactly (numpy over
+float64 phases), renewal churn as the true alternating renewal process
+on the same per-(client, epoch) draws as its tick mask.  The epoch-hash
+churn models (``Churn``, ``RegionalChurn``) have no continuous form, and
+their ``windows`` raise.
 
 Speed models draw the per-client iterations/second vector once, with
 numpy, exactly as the reference does.
@@ -28,14 +32,6 @@ import torch
 from repro_torch import prng
 from repro_torch.analysis.salts import (AVAIL_SALT, PHASE_SALT,
                                         REGION_SALT, RENEW_SALT, SPEED_SALT)
-
-_ITEM9 = ("the event simulator's continuous-time availability windows "
-          "are not ported yet (ROADMAP Queue 1 item 9)")
-
-
-def _no_windows(C: int, seed: int):
-    raise NotImplementedError(_ITEM9)
-
 
 class _EpochCache:
     """Per-epoch device tensors of a tick mask, kept for the two most
@@ -61,6 +57,39 @@ class AlwaysOn:
 
     def tick_plan(self, C: int, dt: float, seed: int, device=None) -> None:
         return None
+
+    def windows(self, C: int, seed: int) -> None:
+        return None
+
+
+class _DiurnalWindows:
+    """Continuous-time periodic on/off windows for the event simulator:
+    client c is on during [k·P − φ_c, k·P − φ_c + on) for integer k."""
+
+    def __init__(self, phase_s: np.ndarray, period_s: float, on_s: float):
+        self.phase_s = phase_s
+        self.period_s = float(period_s)
+        self.on_s = float(on_s)
+
+    def _cum_on(self, c: int, t: float) -> float:
+        """Cumulative on-seconds of client c over (-inf, t]."""
+        tt = t + self.phase_s[c]
+        k, r = divmod(tt, self.period_s)
+        return k * self.on_s + min(r, self.on_s)
+
+    def on_time(self, c: int, t0: float, t1: float) -> float:
+        """On-seconds inside [t0, t1]."""
+        return max(0.0, self._cum_on(c, t1) - self._cum_on(c, t0))
+
+    def advance(self, c: int, t0: float, work_s: float) -> float:
+        """Earliest t with ``on_time(c, t0, t) == work_s`` (inverse)."""
+        if work_s <= 0.0:
+            return t0
+        target = self._cum_on(c, t0) + work_s
+        k, r = divmod(target, self.on_s)
+        if r == 0.0:                  # lands exactly on a window end
+            k, r = k - 1.0, self.on_s
+        return k * self.period_s + r - self.phase_s[c]
 
 
 @dataclass(frozen=True)
@@ -98,7 +127,11 @@ class Diurnal:
 
         return mask
 
-    windows = staticmethod(_no_windows)
+    def windows(self, C: int, seed: int) -> Optional[_DiurnalWindows]:
+        if self.on_frac >= 1.0:
+            return None
+        return _DiurnalWindows(self._phases(C, seed), self.period_s,
+                               self.on_frac * self.period_s)
 
 
 @dataclass(frozen=True)
@@ -128,6 +161,12 @@ class Churn:
         draws = _EpochCache(lambda e: prng.uniform(
             prng.fold_in(base, e), (C,), device=device) < p)
         return lambda t: draws(int(t) // epoch_t)
+
+    def windows(self, C: int, seed: int):
+        raise ValueError(
+            "Churn availability is tick-hash addressed and has no "
+            "continuous-time form; the event simulator cannot run it — "
+            "use the cohort engines (engine='cohort'|'device')")
 
 
 @dataclass(frozen=True)
@@ -196,6 +235,14 @@ class RegionalChurn:
         draws = _EpochCache(draw)
         return lambda t: draws(int(t) // epoch_t)
 
+    def windows(self, C: int, seed: int):
+        raise ValueError(
+            "RegionalChurn is tick-hash addressed and has no "
+            "continuous-time form; the event simulator cannot run it — "
+            "use the cohort engines (engine='cohort'|'device'), or "
+            "RenewalChurn for a churn model the event simulator "
+            "integrates")
+
 
 def _renewal_epoch_draw(base: torch.Tensor, e: int, C: int, N: int,
                         duty: float, on_rate: float, off_rate: float,
@@ -221,6 +268,108 @@ def _renewal_epoch_draw(base: torch.Tensor, e: int, C: int, N: int,
                        torch.tensor(np.float32(on_rate), device=device))
     dur = -torch.log1p(-u[:, 1:]) / rate
     return init_on, prng.cumsum_xla(dur)
+
+
+class _RenewalWindows:
+    """Continuous-time alternating-renewal on/off windows for the event
+    simulator, on the tick mask's draws: time splits into epochs of
+    ``E_s = epoch_cycles * mean_cycle_s`` seconds, and each epoch's
+    per-client initial state and switch times come from the same
+    ``_renewal_epoch_draw`` chain (computed on the CPU).  Where the tick
+    ``dt`` divides ``E_s``, tick t of the cohort engines and second
+    ``t * dt`` here land in the same epoch at the same offset, so
+    ``on_at`` reproduces the tick mask elementwise.  Past the N-th switch
+    of an epoch the state clamps to the post-N parity, as the mask's
+    switch count does."""
+
+    def __init__(self, av: "RenewalChurn", C: int, seed: int):
+        self.C = int(C)
+        self.N = int(av.n_draws)
+        self.E_s = float(av.epoch_cycles * av.mean_cycle_s)
+        self._base = prng.PRNGKey(seed ^ RENEW_SALT)
+        self._duty = float(np.float32(av.duty))
+        self._on_rate = float(av.on_rate)
+        self._off_rate = float(av.off_rate)
+        self._epochs: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+        self._pref = [[0.0] for _ in range(C)]  # on-secs over epochs [0, i)
+
+    def _epoch(self, e: int):
+        ent = self._epochs.get(e)
+        if ent is None:
+            init_on, cs = _renewal_epoch_draw(
+                self._base, e, self.C, self.N, self._duty, self._on_rate,
+                self._off_rate)
+            ent = (init_on.numpy(), cs.numpy())
+            self._epochs[e] = ent
+        return ent
+
+    def on_at(self, c: int, t: float) -> bool:
+        """State of client c at second t — the tick mask's expression
+        (f32 ``cs <= tau`` switch counting)."""
+        e = int(t // self.E_s)
+        init_on, cs = self._epoch(e)
+        tau = np.float32(t - e * self.E_s)
+        ndone = int(np.sum(cs[c] <= tau))
+        return bool(init_on[c]) ^ (ndone % 2 == 1)
+
+    def _walk(self, c: int, e: int, tau: float,
+              need: Optional[float] = None) -> float:
+        """Segment walk inside epoch e.  With ``need=None``: on-seconds
+        of client c over epoch offsets [0, tau].  With ``need``: the
+        smallest offset at which that many on-seconds have accrued."""
+        init_on, cs = self._epoch(e)
+        sw = cs[c].astype(np.float64)
+        on, acc, prev = bool(init_on[c]), 0.0, 0.0
+        for j in range(self.N):
+            hi = min(float(sw[j]), tau)
+            if hi > prev:
+                if on:
+                    if need is not None and acc + (hi - prev) >= need:
+                        return prev + (need - acc)
+                    acc += hi - prev
+                prev = hi
+            if sw[j] >= tau:
+                break
+            on = not on
+        else:
+            # post-N clamp segment up to the epoch-offset horizon
+            if tau > prev and on:
+                if need is not None and acc + (tau - prev) >= need:
+                    return prev + (need - acc)
+                acc += tau - prev
+        if need is not None:
+            raise ValueError(
+                f"epoch {e} holds only {acc} on-seconds for client {c}, "
+                f"need {need}")
+        return acc
+
+    def _prefix(self, c: int, e: int) -> float:
+        """Cumulative on-seconds of client c over the e full epochs."""
+        pl = self._pref[c]
+        while len(pl) <= e:
+            pl.append(pl[-1] + self._walk(c, len(pl) - 1, self.E_s))
+        return pl[e]
+
+    def _cum(self, c: int, t: float) -> float:
+        """Cumulative on-seconds of client c over [0, t]."""
+        if t <= 0.0:
+            return 0.0
+        e = int(t // self.E_s)
+        return self._prefix(c, e) + self._walk(c, e, t - e * self.E_s)
+
+    def on_time(self, c: int, t0: float, t1: float) -> float:
+        return max(0.0, self._cum(c, t1) - self._cum(c, t0))
+
+    def advance(self, c: int, t0: float, work_s: float) -> float:
+        """Earliest t with ``on_time(c, t0, t) == work_s`` (inverse)."""
+        if work_s <= 0.0:
+            return t0
+        target = self._cum(c, t0) + work_s
+        e = max(int(t0 // self.E_s), 0)
+        while self._prefix(c, e + 1) < target:
+            e += 1
+        need = target - self._prefix(c, e)
+        return e * self.E_s + self._walk(c, e, self.E_s, need=need)
 
 
 @dataclass(frozen=True)
@@ -275,7 +424,8 @@ class RenewalChurn:
 
         return mask
 
-    windows = staticmethod(_no_windows)
+    def windows(self, C: int, seed: int) -> "_RenewalWindows":
+        return _RenewalWindows(self, C, seed)
 
 
 @dataclass(frozen=True)

@@ -13,8 +13,8 @@ chain, so the port draws the same arrival ticks:
     broadcast (k, c): fold_in(fold_in(fold_in(lat_base, 1), k), c)
 
 Presets: ``uniform``, ``mobile_diurnal``, ``iot_straggler``,
-``geo_regional`` and ``sensor_renewal``.  The event simulator's
-continuous-seconds draws wait for its slice (ROADMAP Queue 1 item 9).
+``geo_regional`` and ``sensor_renewal``.  Without ``dt`` the plan serves
+the event simulator: latency seconds from the same per-message bins.
 """
 from __future__ import annotations
 
@@ -146,24 +146,31 @@ class Scenario:
 
 
 class ScenarioPlan:
-    """One engine instance's view of a scenario at tick length ``dt``.
+    """One engine instance's view of a scenario.
 
-    ``update_ticks(i)`` / ``broadcast_ticks(k)`` give [C] int32 arrival
-    offsets (>= 1) on ``device``; ``avail_mask(t)`` a bool [C] mask, or
-    is ``None`` when every client is always on.  When every client's
-    table quantizes to one tick count (the ``uniform`` preset at the
-    usual dt), the draws are skipped and one constant tensor is returned
-    — the reference's ``_ticks_const`` path.  Broadcast draws are cached
-    by ``k``: the engine asks for the few counters its cascade may fire
-    next, and each is drawn once.
+    With ``dt`` (the cohort engines): ``update_ticks(i)`` /
+    ``broadcast_ticks(k)`` give [C] int32 arrival offsets (>= 1) on
+    ``device``; ``avail_mask(t)`` a bool [C] mask, or is ``None`` when
+    every client is always on.  When every client's table quantizes to
+    one tick count (the ``uniform`` preset at the usual dt), the draws
+    are skipped and one constant tensor is returned — the reference's
+    ``_ticks_const`` path.  Broadcast draws are cached by ``k``: the
+    engine asks for the few counters its cascade may fire next, and each
+    is drawn once.  The host cohort engine reads the same draws as numpy
+    (``host_update_ticks`` / ``host_broadcast_ticks`` / ``host_avail``).
+
+    With ``dt=None`` (the event simulator): ``update_latencies_s(i)`` /
+    ``broadcast_latencies_s(k)``, every client's latency in seconds from
+    the same keys and bins, the bin value rounded through f32 as the
+    reference gathers it.
     """
 
-    def __init__(self, scenario: Scenario, *, C: int, seed: int, dt: float,
-                 device=None):
+    def __init__(self, scenario: Scenario, *, C: int, seed: int,
+                 dt: Optional[float] = None, device=None):
         self.scenario = scenario
         self.C = int(C)
         self.seed = int(seed)
-        self.dt = float(dt)
+        self.dt = None if dt is None else float(dt)
         self.device = device
         tables = scenario.tables
         self.T = len(tables)
@@ -190,8 +197,18 @@ class ScenarioPlan:
         self._upd_client_keys = prng.fold_in(
             self._upd_base.to(device)[None, :], cidx)       # [C, 2]
         self._bc_cache: Dict[int, torch.Tensor] = {}
-
         self.duty = float(scenario.availability.duty)
+        # per-client-constant seconds: every row is one effective bin, so
+        # no draw; values round-trip through f32 like the sampled path
+        self._const_s = bool((self._values_c == self._values_c[:, :1]).all())
+        self._const_vals_s = self._values_c[:, 0].astype(
+            np.float32).astype(np.float64)
+        self._values_c_dev = torch.tensor(self._values_c, dtype=torch.float32,
+                                          device=device)
+        self._upd_s_cache: Dict[int, np.ndarray] = {}
+        if self.dt is None:
+            return
+
         tick_c = np.maximum(1, np.ceil(self._values_c / self.dt)
                             ).astype(np.int32)
         self.max_lat_ticks = int(tick_c.max())
@@ -206,18 +223,23 @@ class ScenarioPlan:
         self._ticks_const = bool((tick_c == tick_c[:, :1]).all())
         self._tick0_c = torch.tensor(tick_c[:, 0], dtype=torch.int32,
                                      device=device)
+        self._tick0_c_np = tick_c[:, 0].astype(np.int64)
         self._tick_vals_c = torch.tensor(tick_c, dtype=torch.int32,
                                          device=device)
         self.avail_mask: Optional[Callable[[int], torch.Tensor]] = \
             scenario.availability.tick_plan(self.C, self.dt, self.seed,
                                             device=device)
+        self._avail_last: Tuple[Optional[torch.Tensor], Any] = (None, None)
 
     # -- tick-quantized draws ---------------------------------------------
+    def _draw_bins(self, keys: torch.Tensor) -> torch.Tensor:
+        """Per-client alias draw: the bin of each client's table row."""
+        return alias_sample_rows(key_uniforms(keys), self._prob_c,
+                                 self._alias_c)
+
     def _draw_ticks(self, keys: torch.Tensor) -> torch.Tensor:
-        """Per-client alias draw from each client's table row, as ticks."""
-        j = alias_sample_rows(key_uniforms(keys), self._prob_c,
-                              self._alias_c)
-        return torch.gather(self._tick_vals_c, 1, j[:, None])[:, 0]
+        return torch.gather(self._tick_vals_c, 1,
+                            self._draw_bins(keys)[:, None])[:, 0]
 
     def update_ticks(self, i: torch.Tensor) -> torch.Tensor:
         """Arrival-tick offsets of every client's round-``i[c]`` update
@@ -241,6 +263,83 @@ class ScenarioPlan:
             while len(self._bc_cache) > 64:   # counters only move up
                 self._bc_cache.pop(min(self._bc_cache))
         return hit
+
+    # -- the same draws as numpy (the host cohort engine) ------------------
+    def host_update_ticks(self, i: np.ndarray) -> np.ndarray:
+        if self._ticks_const:
+            return self._tick0_c_np.copy()
+        i_dev = torch.as_tensor(np.asarray(i, np.int64)).to(self.device)
+        return self.update_ticks(i_dev).cpu().numpy().astype(np.int64)
+
+    def host_broadcast_ticks(self, k: int) -> np.ndarray:
+        if self._ticks_const:
+            return self._tick0_c_np.copy()
+        return self.broadcast_ticks(k).cpu().numpy().astype(np.int64)
+
+    def host_avail(self, t: int) -> Optional[np.ndarray]:
+        """``avail_mask(t)`` as numpy; a mask tensor the model returns
+        again (one draw per churn epoch) is copied once."""
+        if self.avail_mask is None:
+            return None
+        m = self.avail_mask(t)
+        last, arr = self._avail_last
+        if m is not last:
+            arr = m.cpu().numpy()
+            self._avail_last = (m, arr)
+        return arr
+
+    # -- continuous-seconds draws (the event simulator) --------------------
+    def update_latencies_s(self, i: int) -> np.ndarray:
+        """Every client's latency seconds for its round-``i`` update, in
+        one draw per round (cached): the keys and bins of
+        ``update_ticks``."""
+        if self._const_s:
+            return self._const_vals_s.copy()
+        i = int(i)
+        hit = self._upd_s_cache.get(i)
+        if hit is None:
+            keys = prng.fold_in(self._upd_client_keys, i)
+            hit = self._gather_s(keys)
+            self._upd_s_cache[i] = hit
+            while len(self._upd_s_cache) > 16:   # rounds advance in order
+                self._upd_s_cache.pop(next(iter(self._upd_s_cache)))
+        return hit
+
+    def update_latency_s(self, c: int, i: int) -> float:
+        """Latency (virtual seconds) of client c's round-i update."""
+        return float(self.update_latencies_s(i)[c])
+
+    def broadcast_latencies_s(self, k: int) -> np.ndarray:
+        """Every client's latency seconds for broadcast ``k``: the keys
+        and bins of ``broadcast_ticks``."""
+        if self._const_s:
+            return self._const_vals_s.copy()
+        bk = prng.fold_in(self._bc_base, int(k)).to(self.device)
+        return self._gather_s(prng.fold_in(bk[None, :], self._cidx))
+
+    def _gather_s(self, keys: torch.Tensor) -> np.ndarray:
+        j = self._draw_bins(keys)
+        s = torch.gather(self._values_c_dev, 1, j[:, None])[:, 0]
+        return s.cpu().numpy().astype(np.float64)
+
+
+# plans are immutable (their draw caches aside): engines built on the same
+# (scenario, C, seed, dt, device) share one
+_PLAN_CACHE: Dict[Any, ScenarioPlan] = {}
+_PLAN_CACHE_MAX = 32
+
+
+def scenario_plan(scenario: Scenario, *, C: int, seed: int,
+                  dt: Optional[float] = None, device=None) -> ScenarioPlan:
+    """A cached ``ScenarioPlan``, least recently used dropped first."""
+    key = (scenario, int(C), int(seed), dt, str(device))
+    plan = _PLAN_CACHE.pop(key, None)
+    if plan is None:
+        plan = ScenarioPlan(scenario, C=C, seed=seed, dt=dt, device=device)
+    _PLAN_CACHE[key] = plan
+    while len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
+        _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
+    return plan
 
 
 # ---------------------------------------------------------------------------

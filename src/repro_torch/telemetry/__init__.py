@@ -7,14 +7,15 @@ from repro_torch.telemetry.costs import (
 )
 from repro_torch.telemetry.report import (
     HEADER_BYTES, STALE_BINS, MetricsReport, broadcast_msg_bytes,
-    build_report, participation_sizes, staleness_bin, update_msg_bytes,
+    build_report, model_flat_dim, participation_sizes, staleness_bin,
+    update_msg_bytes,
 )
 from repro_torch.telemetry.spans import PhaseTimer, SpanRecorder
 from repro_torch.telemetry.trace import JsonlTraceWriter, open_trace
 
 __all__ = [
     "HEADER_BYTES", "STALE_BINS", "MetricsReport", "broadcast_msg_bytes",
-    "build_report", "participation_sizes", "staleness_bin",
+    "build_report", "model_flat_dim", "participation_sizes", "staleness_bin",
     "update_msg_bytes", "JsonlTraceWriter", "open_trace", "PhaseTimer",
     "SpanRecorder", "N_OPS", "OP_NAMES", "check_ops", "cost_decomposition",
     "ops_dict", "ops_vector", "zero_ops",

@@ -27,8 +27,11 @@ coordinate, plus a fixed ``HEADER_BYTES`` envelope (round, client, k,
 length).  Integer byte counts are therefore exact and engine-invariant.
 
 Counter contract: ``participation``, ``bytes_up``, ``messages``,
-``broadcasts`` and ``staleness_hist`` of the port's device engine are
-exactly equal to the JAX reference engine's on the same configuration.
+``broadcasts`` and ``staleness_hist`` of each of the port's three
+engines are exactly equal to the JAX reference engine's on the same
+configuration; the two cohort engines' are bitwise equal to each other,
+and equal to the event simulator's at ``d = 1`` under deterministic
+scenarios.
 """
 from __future__ import annotations
 
@@ -57,6 +60,12 @@ def update_msg_bytes(flat_dim: int) -> int:
 def broadcast_msg_bytes(flat_dim: int) -> int:
     """Bytes on the wire for one server->client broadcast copy."""
     return HEADER_BYTES + F32_BYTES * int(flat_dim)
+
+
+def model_flat_dim(model: Any) -> int:
+    """Total scalar count of a model's params (a dict of tensors)."""
+    from repro_torch.tree import leaves
+    return int(sum(int(np.prod(tuple(leaf.shape))) for leaf in leaves(model)))
 
 
 def staleness_bin(tau: int) -> int:

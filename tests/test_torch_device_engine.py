@@ -243,22 +243,38 @@ def test_params_from_jax_carries_the_init_model():
 
 
 def test_unported_options_raise_with_their_roadmap_item():
-    """What the port does not run yet names its ROADMAP item: the host
-    cohort engine (Queue 1 item 6), the event simulator and its
-    continuous-time availability windows (item 9) and the model-scale
-    task adapter (item 11)."""
+    """What the port does not run yet names its ROADMAP item: the
+    model-scale task adapter (Queue 1 item 11), for every cohort engine."""
+    X, y = make_binary_dataset(50, 6, seed=0)
+    kw = dict(n_clients=4, sizes_per_client=[2], round_stepsizes=[0.1],
+              device="cpu")
+    for engine in ("cohort", "device"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
+            make_simulator(engine, object(), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
+        DeviceCohortSimulator(object(), **kw)
+
+
+def test_engines_and_windows_of_items_6_and_9_build():
+    """The host cohort engine and the event simulator build through
+    ``make_simulator`` and run a round; the continuous-time windows of
+    ``Diurnal`` and ``RenewalChurn`` build and integrate."""
+    from repro_torch.cohort import CohortSimulator
+    from repro_torch.core import AsyncFLSimulator
     X, y = make_binary_dataset(50, 6, seed=0)
     task = LogRegTask(X, y, sample_seed=0)
     kw = dict(n_clients=4, sizes_per_client=[2], round_stepsizes=[0.1],
               device="cpu")
-    for engine in ("cohort", "event"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_simulator(engine, task, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DeviceCohortSimulator(object(), **kw)
+    for engine, cls in (("cohort", CohortSimulator),
+                        ("event", AsyncFLSimulator)):
+        sim = make_simulator(engine, task, **kw)
+        assert isinstance(sim, cls)
+        assert sim.run(max_rounds=1)["final"]["round"] == 1
     for av in (tscn.Diurnal(), tscn.RenewalChurn()):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            av.windows(4, 0)
+        win = av.windows(4, 0)
+        t = win.advance(1, 0.0, 10.0)
+        assert t >= 10.0
+        assert abs(win.on_time(1, 0.0, t) - 10.0) < 1e-9
 
 
 def test_options_of_this_slice_run():

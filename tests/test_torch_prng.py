@@ -242,3 +242,30 @@ def test_streams_at_a_seed_past_32_bits(name):
     for t in (1, 17):
         assert (_np(jax.random.fold_in(base, t))
                 == prng.fold_in(sim.engine._noise_base, t).numpy()).all()
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 60000), (0, 1000), (0, 1 << 20),
+                                   (-7, 13), (5, 5), (9, 2),
+                                   (-2 ** 31, 2 ** 31 - 1), (0, 3)])
+def test_randint_vmapped_keys_bitwise(lo, hi):
+    """``vmap(randint(k, (), lo, hi))`` over 100000 split keys (the event
+    engine's non-``sample_seed`` draw), bit for bit: spans that are and
+    are not powers of two, ``maxval = 60000`` (MNIST's n), an empty range
+    and the whole int32 range."""
+    n = 100_000
+    keys = jax.random.split(jax.random.PRNGKey(17), n)
+    want = np.asarray(jax.vmap(
+        lambda k: jax.random.randint(k, (), lo, hi))(keys))
+    got = prng.randint(prng.split(prng.PRNGKey(17), n), (), lo, hi)
+    assert want.dtype == np.int32
+    assert np.array_equal(want.astype(np.int64), got.numpy())
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 5), ()])
+def test_randint_one_key_with_a_shape_bitwise(shape):
+    k = jax.random.fold_in(jax.random.PRNGKey(4), 3)
+    tk = prng.fold_in(prng.PRNGKey(4), 3)
+    for lo, hi in ((0, 60000), (-3, 100), (0, 16)):
+        want = np.asarray(jax.random.randint(k, shape, lo, hi))
+        assert np.array_equal(want.astype(np.int64),
+                              prng.randint(tk, shape, lo, hi).numpy())

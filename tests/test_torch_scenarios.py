@@ -171,6 +171,44 @@ def test_table_constructors_and_traces_match(tmp_path):
 
 
 def test_event_simulator_windows_are_not_ported():
-    for av in (T.Diurnal(), T.RenewalChurn()):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            av.windows(4, 0)
+    """The name predates the port of the event simulator, which brought
+    the windows: ``Diurnal`` and ``RenewalChurn`` now give the reference's
+    continuous-time windows (the same on/off state at sampled times), and
+    the epoch-hash churn models raise as the reference's do."""
+    for jav, tav in ((J.Diurnal(), T.Diurnal()),
+                     (J.RenewalChurn(), T.RenewalChurn())):
+        jw, tw = jav.windows(4, 0), tav.windows(4, 0)
+        for c in range(4):
+            for t in np.linspace(0.0, 900.0, 31):
+                on_j = jw.on_time(c, float(t), float(t) + 1e-3) > 0
+                on_t = tw.on_time(c, float(t), float(t) + 1e-3) > 0
+                assert on_j == on_t, (type(tav).__name__, c, t)
+    for jav, tav in ((J.Churn(), T.Churn()),
+                     (J.RegionalChurn(), T.RegionalChurn())):
+        with pytest.raises(ValueError) as want:
+            jav.windows(4, 0)
+        with pytest.raises(ValueError) as got:
+            tav.windows(4, 0)
+        assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("name", PRESETS)
+def test_host_views_match_reference(name):
+    """``host_update_ticks`` / ``host_broadcast_ticks`` / ``host_avail``
+    (the host cohort engine's numpy reads of the plan's draws) against
+    the reference's, bit for bit, across availability epochs."""
+    dt = 0.7
+    jp, tp = _plans(name, dt)
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        i = rng.integers(0, 50, C)
+        assert np.array_equal(jp.host_update_ticks(i),
+                              tp.host_update_ticks(i))
+    for k in (1, 2, 9, 40):
+        assert np.array_equal(jp.host_broadcast_ticks(k),
+                              tp.host_broadcast_ticks(k))
+    for t in (1, 2, 90, 91, 500, 2000, 2001):
+        a, b = jp.host_avail(t), tp.host_avail(t)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert np.array_equal(a, b), t

@@ -95,3 +95,17 @@ def test_zoo_with_dp_and_stochastic_preset_matches_reference(spec,
                                                              scenario):
     _check(_with(_ZOO, task=dict(dp_clip=0.1, dp_sigma=2.0), strategy=spec,
                  scenario=scenario, dp_round_clip=0.5))
+
+
+@pytest.mark.parametrize("kw", DECAYS + [
+    dict(decay="hinge", alpha=0.45, hinge_a=2.5, hinge_b=3),
+    dict(decay="poly", alpha=0.75, poly_a=0.8),
+    dict(decay="constant", alpha=0.2)],
+    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_fedasync_weight_matches_reference(kw):
+    """The event server's per-update weight ``alpha * s(tau)``, tau clamped
+    at 0, equals the reference's for tau = -2 .. 64."""
+    js, ts = JS.FedAsyncStrategy(**kw), TS.FedAsyncStrategy(**kw)
+    for tau in range(-2, 65):
+        assert ts.weight(tau) == js.weight(tau), tau
+    assert TS.PaperStrategy().weight(5) == JS.PaperStrategy().weight(5)
