@@ -66,11 +66,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    being per-client Python) in the three-way-parity configuration (d =
    1, a ``sample_seed`` task, sizes [10, 20, 30, 40], 4 rounds): its
    integers equal both cohort engines', its model within 1e-4 of
-   theirs, the cohort engines bit for bit; and against its own CPU run.
+   theirs, the cohort engines bit for bit; and against its own CPU run;
+12. ``model_serve``: the model API at full width and depth, weights from
+   ``init_params``: gemma2-2b (26 layers, vocab 256000) f32 and bf16 at B
+   1, S 8192 through ``flash_attention`` and mamba2-780m (48 layers) f32
+   at B 4, S 2048 through ``ssd_scan``, ``forward_prefill`` three times
+   each (one launch a layer), against the same models through the plain
+   cores on the card, layer by layer (phases 8's and 9's limits) and end
+   to end (logits, final hidden states); the serve path (f32):
+   ``prefill_into_cache`` over a 32-token prompt and 16 greedy decode
+   steps, its prompt logits against the kernels' prefill pass; then
+   ``python -m repro_torch.launch.serve`` for both archs, as users start
+   it (exit 0).  Peak memory per model.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (launches from the path that runs each kernel most: the tick kernels'
 from the scenario runs, with the main run's and the host engine's beside
+them; attention and the SSD from phase 12, the one-layer phases' beside
 them), and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line; so does a machine without CUDA.
@@ -136,6 +148,16 @@ FEDSGD_ITERS = (8, 8)
 DP_MICROBATCH = 6000
 ATTN = dict(B=1, S=8192)
 SSM = dict(B=4, S=2048)
+# phase 12, the model API at full width and full depth (gemma2-2b: 26
+# layers, vocab 256000; mamba2-780m: 48 layers), weights from
+# init_params on a seeded key, at phases 8's and 9's B and S; then the
+# serve path over a make_batch prompt at the reference serve driver's
+# defaults (batch 4, 32 prompt tokens, 16 generated)
+MODEL = (dict(arch="gemma2-2b", kernel="flash_attention", B=1, S=8192,
+              dtypes=("float32", "bfloat16")),
+         dict(arch="mamba2-780m", kernel="ssd_scan", B=4, S=2048,
+              dtypes=("float32",)))
+SERVE = dict(batch=4, prompt=32, gen=16)
 # the reference suite's tolerances (tests/test_kernels.py): attention
 # abs + rel, SSD max error over max |ref|
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -148,6 +170,26 @@ SSD_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 # at S = 8192 about 0.1 per row (the planted fault below)
 ATTN_BF16_REL_L2 = 5e-3
 ATTN_BF16_ROW_REL_L2 = 2e-2
+
+# phase 12, f32, the model through the kernels against the plain cores on
+# the card: max |out - ref| / max |ref| of the last-position logits and
+# of the final hidden states.  Phases 8 and 9 read one layer's gap at
+# ~1e-6 (attention) and ~2.4e-6 (the SSD mixer); over 48 residual layers
+# that adds to ~1.2e-4 at worst, and 2e-4 leaves room over it
+MODEL_F32_TOL = 2e-4
+# phase 12, bf16, end to end (rel L2 whole and per row): the two cores
+# round p differently in every layer and every later op rounds to bf16,
+# so the gap compounds with depth; a plain-torch model of the kernel's
+# rounding through gemma2-2b's 26 layers at d_model 256, S 512 on the CPU
+# reads 2.0e-2 whole and 2.7e-2 in the worst row (tests/test_torch_
+# models.py holds it to half these limits).  Each layer's attention
+# output, on its own input, is held to phase 8's limits
+MODEL_BF16_REL_L2 = 5e-2
+MODEL_BF16_ROW_REL_L2 = 1e-1
+# the serve path's decode against the prefill pass, f32: the reference
+# suite's tolerance for it (tests/test_models_smoke.py,
+# test_decode_matches_forward)
+DECODE_RTOL, DECODE_ATOL = 2e-2, 2e-3
 
 # tolerances where a kernel reorders a float sum: the error of a
 # reordered f32 sum of n terms is bounded by a small multiple of
@@ -1497,6 +1539,15 @@ def phase_model_kernels(dev, G, logs):
     entry = None
     for dt in (f32, bf16):
         q, k, v = (randn(B, S, h, hd).to(dt) for h in (H, KV, KV))
+        # a global layer of the model passes window = S (layer_windows):
+        # the kernel must read any window >= S as plain causal, bit for bit
+        causal = attend(q, k, v, softcap=cap)
+        for wide in (S, 2 * S):
+            if not bits_equal(attend(q, k, v, window=wide, softcap=cap),
+                              causal):
+                fail(f"flash_attention ({dt}): window={wide} at S={S} is "
+                     f"not bitwise the causal output")
+        del causal
         for window in (None, W):
             kw = dict(window=window, softcap=cap)
             e, whole, row = check_attention(
@@ -1859,6 +1910,208 @@ def phase_ssm_layer(dev):
     return dict(launches.LAUNCHES)
 
 
+def model_layers(cfg, params, tokens, name):
+    """``transformer.forward``'s kernel path, layer by layer: each layer's
+    attention (or SSD mixer) output through the kernel is held against the
+    plain core's on the same input, to phase 8's (9's) limits.  Returns
+    the final hidden states and the worst readings: (max abs diff, rel L2
+    whole, worst row) for attention, (rel err,) for the mixer."""
+    import torch
+    from repro_torch.models import attention, ssm, transformer
+    from repro_torch.models.common import apply_norm, embed_tokens
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(
+        B, S)
+    worst = []
+    for li, window in enumerate(transformer.layer_windows(cfg, S)):
+        lp = transformer.layer(params["blocks"], li)
+        h = apply_norm(cfg, x, lp["ln1"])
+        what = f"model {cfg.arch_id} layer {li} ({x.dtype})"
+        if name == "flash_attention":
+            out = attention.attend_full(cfg, lp["attn"], h, pos, window)
+            ref = attention.attend_full(cfg, lp["attn"], h, pos, window,
+                                        core=attention.dense_attention)
+            tol = ATTN_TOL[str(x.dtype).split(".")[-1]]
+            diff = (out.float() - ref.float()).abs()
+            if not bool((diff <= tol + tol * ref.float().abs()).all()):
+                fail(f"{what}: attention off the dense core by "
+                     f"{float(diff.max())}")
+            read = ((float(diff.max()),)
+                    + (check_rel_l2(out, ref, what)
+                       if x.dtype == torch.bfloat16 else rel_l2(out, ref)))
+        else:
+            out = ssm.apply_ssm(cfg, lp["ssm"], h)
+            ref = ssm.apply_ssm(cfg, lp["ssm"], h, ssd_fn=ssm.ssd_chunked)
+            read = (rel_err(out, ref),)
+            if not read[0] < SSD_TOL["float32"]:
+                fail(f"{what}: mixer off the plain SSD by {read[0]} of max "
+                     f"|ref|")
+        worst = [max(a, b) for a, b in zip(worst or read, read)]
+        x, _ = transformer._layer_body(cfg, x, lp, window, pos)
+    return apply_norm(cfg, x, params["final_norm"]), worst
+
+
+def check_model(out, ref, dt, what):
+    """An end-to-end model output against the plain cores' (phase 12's
+    limits); returns the readings."""
+    import torch
+    if not bool(torch.isfinite(out.float()).all()):
+        fail(f"{what}: not finite")
+    if dt == torch.float32:
+        err = rel_err(out, ref)
+        if not err <= MODEL_F32_TOL:
+            fail(f"{what}: {err} of max |ref| off the plain cores (limit "
+                 f"{MODEL_F32_TOL})")
+        return dict(rel_err=err)
+    whole, row = rel_l2(out, ref)
+    if not (whole <= MODEL_BF16_REL_L2 and row <= MODEL_BF16_ROW_REL_L2):
+        fail(f"{what}: rel L2 {whole} whole (limit {MODEL_BF16_REL_L2}), "
+             f"{row} in the worst row (limit {MODEL_BF16_ROW_REL_L2})")
+    return dict(rel_l2=whole, worst_row_rel_l2=row)
+
+
+def serve_run(cfg, params, name, dev):
+    """The serve path, f32: ``prefill_into_cache`` over a make_batch prompt
+    (decode steps, plain torch: no kernel), then greedy decode; the
+    prompt's last logits against ``forward_prefill`` through the kernel on
+    the same tokens."""
+    import torch
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import launches
+    from repro_torch.launch.serve import prefill_into_cache
+    from repro_torch.models import forward_prefill, init_cache, serve_step
+    Bs, P, G = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    tokens = torch.as_tensor(make_batch(cfg, Bs, P, seed=0)["tokens"],
+                             device=dev)
+    cache = init_cache(cfg, Bs, P + G, torch.float32, device=dev)
+    before = launches.LAUNCHES[name]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill_into_cache(cfg, params, cache, tokens,
+                                       seq_len=P + G)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    last = logits[:, -1]
+    cur = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+    gen = []
+    t0 = time.perf_counter()
+    for i in range(G):
+        logits, cache = serve_step(cfg, params, cache, cur, P + i,
+                                   seq_len=P + G)
+        cur = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        gen.append(cur)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if launches.LAUNCHES[name] != before:
+        fail(f"serve {cfg.arch_id}: the decode path launched {name}")
+    walls, ref = timed_calls(lambda: forward_prefill(cfg, params,
+                                                     {"tokens": tokens}),
+                             name, cfg.n_layers, f"serve {cfg.arch_id} "
+                             f"prefill pass", n=1)
+    gen = torch.cat(gen, dim=1)
+    V = cfg.vocab_size
+    diff = (last[:, :V] - ref[:, :V]).abs()
+    if not bool((diff <= DECODE_ATOL + DECODE_RTOL * ref[:, :V].abs()
+                 ).all()):
+        fail(f"serve {cfg.arch_id}: the decode path's prompt logits are "
+             f"{float(diff.max())} off the prefill pass through {name}")
+    if not bool(((gen >= 0) & (gen < cfg.vocab_size)).all()):
+        fail(f"serve {cfg.arch_id}: generated ids outside the vocabulary")
+    print(f"phase model_serve: serve {cfg.arch_id} f32 batch={Bs} "
+          f"prompt={P} gen={G} prefill_into_cache_s={prefill_s} "
+          f"decode_s={decode_s} decode_tok_per_s={G * Bs / decode_s} "
+          f"prefill_pass_s={walls} prompt_logits_max_abs_diff_vs_prefill="
+          f"{float(diff.max())} sample={gen[0].tolist()}")
+
+
+def phase_model_serve(dev):
+    """Phase 12: the model API at full width through the kernels
+    (``forward_prefill``: gemma2-2b f32 and bf16 through
+    ``flash_attention``, mamba2-780m f32 through ``ssd_scan``), against the
+    same models through the plain cores on the card, layer by layer and
+    end to end; the serve path (decode) against the kernels' prefill;
+    then ``python -m repro_torch.launch.serve`` as users start it.
+    Returns the launch counts of the run."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import launches
+    from repro_torch.models import forward_prefill, init_params, transformer
+    from repro_torch.models.attention import dense_attention
+    from repro_torch.models.common import padded_vocab
+    from repro_torch.models.ssm import ssd_chunked
+
+    plain = {"flash_attention": dict(attn_core=dense_attention),
+             "ssd_scan": dict(ssd_fn=ssd_chunked)}
+    torch.cuda.empty_cache()
+    launches.reset()
+    for m in MODEL:
+        cfg, name = get_config(m["arch"]), m["kernel"]
+        tokens = torch.as_tensor(make_batch(cfg, m["B"], m["S"], seed=0)[
+            "tokens"], device=dev)
+        for dts in m["dtypes"]:
+            dt = getattr(torch, dts)
+            what = f"model {m['arch']} ({dts}) B={m['B']} S={m['S']}"
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = init_params(cfg, prng.PRNGKey(0), dt, device=dev)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            with torch.no_grad():
+                walls, logits = timed_calls(
+                    lambda: forward_prefill(cfg, params, {"tokens": tokens}),
+                    name, cfg.n_layers, what)
+                pwalls, plogits = timed_calls(
+                    lambda: forward_prefill(cfg, params, {"tokens": tokens},
+                                            **plain[name]),
+                    name, 0, what + " plain cores", n=1)
+                hidden, layer_worst = model_layers(cfg, params, tokens, name)
+                phidden, _ = transformer.forward(cfg, params, tokens,
+                                                 **plain[name])
+                # the embedding's storage rows: odd vocabularies padded,
+                # the pad logits masked to -1e30 (checked, then cut off)
+                V = cfg.vocab_size
+                if tuple(logits.shape) != (m["B"], padded_vocab(V)) or \
+                        bool((logits[:, V:] != -1e30).any()):
+                    fail(f"{what}: logits of shape {tuple(logits.shape)} "
+                         f"or pad logits not masked")
+                logits, plogits = logits[:, :V], plogits[:, :V]
+                lg = check_model(logits, plogits, dt, what + " logits")
+                hd = check_model(hidden, phidden, dt, what + " hidden")
+                peak = torch.cuda.max_memory_allocated()
+                print(f"phase model_serve: {what} layers={cfg.n_layers} "
+                      f"d_model={cfg.d_model} vocab={cfg.vocab_size} "
+                      f"init_s={init_s} prefill_walls_s={walls} "
+                      f"plain_cores_walls_s={pwalls} "
+                      f"{name}_launches_per_prefill={cfg.n_layers} "
+                      f"logits={lg} hidden={hd} worst_layer={layer_worst} "
+                      f"max_abs_logit={float(logits.abs().max())} "
+                      f"peak_mem_gb={peak / 2 ** 30}")
+                if dt == torch.float32:
+                    serve_run(cfg, params, name, dev)
+            del params, logits, plogits, hidden, phidden
+            torch.cuda.empty_cache()
+    counts = dict(launches.LAUNCHES)
+    for m in MODEL:
+        if not counts[m["kernel"]]:
+            fail(f"phase model_serve: {m['kernel']} was not launched")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    for arch in ("mamba2-780m", "gemma2-2b"):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                            "--arch", arch], cwd=HERE, env=env,
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode:
+            fail(f"python -m repro_torch.launch.serve --arch {arch} exited "
+                 f"{r.returncode}: {r.stderr[-2000:]}")
+        print(f"phase model_serve: python -m repro_torch.launch.serve --arch "
+              f"{arch}: exit 0 in {time.perf_counter() - t0} s: "
+              + " | ".join(r.stdout.strip().splitlines()))
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1923,19 +2176,28 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels += phase_model_kernels(dev, G, logs)
     print(f"phase model_kernels: wall_s={time.perf_counter() - t0}")
+    del G
+    t0 = time.perf_counter()
+    model_counts = phase_model_serve(dev)
+    print(f"phase model_serve: wall_s={time.perf_counter() - t0} "
+          f"launches={model_counts}")
     # launches: each kernel's count from the path that runs it most: the
     # scenario runs (in-kernel noise) for the tick kernels, each on every
     # tick or completion tick there (the main run's count and the host
     # engine's beside them),
     # the main run for the operand noise kernel, the DP round (split by
-    # N), the attention layer and the SSM layer for the model-scale three
+    # N), the model API (phase 12) for attention and the SSD (the one-layer
+    # phases' counts beside them)
     path_counts = dict(bucket_apply=scn_counts, tick_deliver=scn_counts,
                        tick_scatter=scn_counts,
                        cohort_clip_noise_prng=scn_counts,
                        clip_accumulate=dp_counts,
-                       flash_attention=attn_counts, ssd_scan=ssm_counts)
+                       flash_attention=model_counts, ssd_scan=model_counts)
+    layer_counts = dict(flash_attention=attn_counts, ssd_scan=ssm_counts)
     for k in kernels:
         k["launches"] = path_counts.get(k["name"], counts)[k["name"]]
+        if k["name"] in layer_counts:
+            k["launches_layer"] = layer_counts[k["name"]][k["name"]]
         if k["name"] in ("bucket_apply", "tick_deliver", "tick_scatter"):
             k["launches_main"] = counts[k["name"]]
         if k["name"] in HOST_PATH:

@@ -246,10 +246,10 @@ class FLConfig:
     d: int = 1                    # gate i <= k + d
     total_grads: int = 20_000     # K
     seed: int = 0
-    engine: str = "device"        # device (cohort/device.py, the
-    #                               default) | cohort (cohort/engine.py,
-    #                               host tick loop) | event
-    #                               (core/simulator.py)
+    engine: str = "event"         # event (core/simulator.py, the
+    #                               default, as in the reference) |
+    #                               cohort (cohort/engine.py, host tick
+    #                               loop) | device (cohort/device.py)
     cohort_block: int = 64        # iteration credit per cohort tick
     scenario: Optional[Any] = None     # scenario preset name or Scenario
     aggregation: Optional[Any] = None  # strategy spec (paper/fedasync/fedbuff)

@@ -1,0 +1,21 @@
+"""minitron-8b [dense] — 32L d_model=4096 32H (GQA kv=8) d_ff=16384
+vocab=256000; pruned nemotron.  [arXiv:2407.14679]
+"""
+from repro_torch.configs.base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        arch_id="minitron-8b",
+        family="dense",
+        n_layers=32,
+        d_model=4096,
+        n_heads=32,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=16384,
+        vocab_size=256000,
+        activation="silu",   # nemotron uses squared-relu; silu variant kept simple
+        norm="rmsnorm",
+        source="[arXiv:2407.14679]",
+    )

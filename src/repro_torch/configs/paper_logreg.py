@@ -1,12 +1,36 @@
 """The paper's own experiment: (strongly-)convex logistic regression
 trained by asynchronous FL (Section 4 / Supp. E)."""
-from repro_torch.configs.base import (DPConfig, FLConfig,
+from repro_torch.configs.base import (DPConfig, FLConfig, ModelConfig,
                                       SampleSequenceConfig, StepSizeConfig)
 
 #: the widest data the configuration's source names: MNIST subsets,
 #: 28 x 28 = 784 features (D = 785 with the bias)
 SOURCE = "[paper §4, Supp. E: LIBSVM binary / MNIST subsets]"
 MNIST_FEATURES = 784
+
+
+def config(d_features: int = 64) -> ModelConfig:
+    # Represented as a degenerate "dense" model: a single linear layer is
+    # handled by repro_torch.models.logreg, keyed on family == "logreg".
+    return ModelConfig(
+        arch_id="paper-logreg",
+        family="logreg",
+        n_layers=1,
+        d_model=d_features,
+        vocab_size=2,
+        source=SOURCE,
+    )
+
+
+def fl_config_fig1a() -> FLConfig:
+    """Fig 1a: strongly convex, eta0=0.1, linear increasing sample sizes."""
+    return FLConfig(
+        n_clients=5,
+        sample_seq=SampleSequenceConfig(kind="linear", s0=50, a=50.0),
+        step_size=StepSizeConfig(kind="inv_t", eta0=0.1, beta=0.001,
+                                 round_transform=True),
+        total_grads=20_000,
+    )
 
 
 def fl_config_fig1b() -> FLConfig:

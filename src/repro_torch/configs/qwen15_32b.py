@@ -1,0 +1,23 @@
+"""qwen1.5-32b [dense] — 64L d_model=5120 40H (GQA kv=40 => MHA-style) d_ff=27392
+vocab=152064, QKV bias.  [hf:Qwen/Qwen1.5-0.5B family card scaled per assignment]
+"""
+from repro_torch.configs.base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        arch_id="qwen1.5-32b",
+        family="dense",
+        n_layers=64,
+        d_model=5120,
+        n_heads=40,
+        n_kv_heads=40,
+        head_dim=128,
+        d_ff=27392,
+        vocab_size=152064,
+        qkv_bias=True,
+        activation="silu",
+        rope_theta=1_000_000.0,
+        norm="rmsnorm",
+        source="[hf:Qwen/Qwen1.5-0.5B]",
+    )

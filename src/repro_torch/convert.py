@@ -12,9 +12,12 @@ import torch
 
 from repro_torch.cohort.state import (BroadcastRing, CohortState,
                                       DeviceCohortState, UpdateBuckets)
+# layer i of a stacked (L, ...) params tree, for the callers of convert
+from repro_torch.models.transformer import layer  # noqa: F401
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
-           np.dtype(np.int32): torch.int32}
+           np.dtype(np.int32): torch.int32,
+           np.dtype(np.int8): torch.int8}
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -26,7 +29,8 @@ def _tensor(x, device) -> torch.Tensor:
                             device=device).to(torch.bfloat16)
     if a.dtype not in _DTYPES:
         raise TypeError(f"unexpected dtype {a.dtype} (want float32, "
-                        f"bfloat16 or int32, as the reference keeps them)")
+                        f"bfloat16, int32 or int8, as the reference keeps "
+                        f"them)")
     return torch.tensor(a, dtype=_DTYPES[a.dtype], device=device)
 
 
@@ -48,10 +52,29 @@ def stacked_params_from_jax(params: Mapping[str, Any],
     return out
 
 
-def layer(params: Mapping[str, torch.Tensor], i: int
-          ) -> Dict[str, torch.Tensor]:
-    """Layer ``i`` of stacked ``(L, ...)`` params."""
-    return {k: v[i] for k, v in params.items()}
+def _tree(np_tree, device, what: str, dtypes):
+    if isinstance(np_tree, Mapping):
+        return {k: _tree(v, device, f"{what}/{k}", dtypes)
+                for k, v in np_tree.items()}
+    a = np.asarray(np_tree)
+    if a.dtype.name not in dtypes:
+        raise TypeError(f"{what}: dtype {a.dtype.name}, want one of "
+                        f"{dtypes}")
+    return _tensor(a, device)
+
+
+def model_params_from_jax(np_tree: Mapping[str, Any], device=None):
+    """Numpy copies of a whole decoder or encdec params tree (the
+    reference's ``models.init_params``; f32 or bf16 leaves, by dtype
+    name) -> the port's nested dict of tensors, in the same layout."""
+    return _tree(np_tree, device, "params", ("float32", "bfloat16"))
+
+
+def cache_from_jax(np_tree: Mapping[str, Any], device=None):
+    """Numpy copies of a decode cache (the reference's ``init_cache`` /
+    ``serve_step`` output: f32 or bf16 leaves, int8 in the quantized KV
+    layout) -> the port's nested dict of tensors."""
+    return _tree(np_tree, device, "cache", ("float32", "bfloat16", "int8"))
 
 
 def state_from_jax(np_state, device=None) -> DeviceCohortState:

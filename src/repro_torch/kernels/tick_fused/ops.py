@@ -27,6 +27,17 @@ def on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
+def no_backward(kernel: str, *tensors) -> None:
+    """Raises where autograd would need ``kernel``'s backward, which it
+    lacks: grad mode is on and an input requires grad.  The plain
+    version (a CPU tensor) differentiates."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {kernel} kernel has no backward: call it under "
+            f"torch.no_grad() or on inputs that do not require grad")
+
+
 def bucket_apply(v, rows, dec, flag):
     """v [D], rows [A, D], dec [A], flag [] bool tensor -> [D]."""
     if not on_cuda(v):

@@ -107,13 +107,13 @@ def _scalar_key(key: torch.Tensor) -> Tuple[int, int]:
     return int(k0), int(k1)
 
 
-def counter_words(key: torch.Tensor, n: int,
-                  device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def counter_words(key: torch.Tensor, n: int, device=None, *,
+                  start: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both output words ``(x0, x1)`` of ``threefry2x32(key, (hi, lo))``
-    over the flat indices ``0 .. n - 1`` (the counters ``random_bits``
-    hashes).  ``key`` is one key, kept on the CPU."""
+    over the flat indices ``start .. start + n - 1`` (the counters
+    ``random_bits`` hashes).  ``key`` is one key, kept on the CPU."""
     k0, k1 = _scalar_key(key)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     return threefry2x32(k0, k1, idx >> 32, idx & MASK32)
 
 
@@ -191,9 +191,16 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     f64) and the sum are taken in f64 and rounded to f32; that differs
     from one rounding only if the f64 sum lands exactly halfway between
     two f32 values, which the tests' draws never do."""
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
-    f = _bits_to_unit(random_bits(key, shape, device=device))
+    return _unit_to_range(_bits_to_unit(random_bits(key, shape,
+                                                    device=device)),
+                          minval, maxval)
+
+
+def _unit_to_range(f: torch.Tensor, minval: float,
+                   maxval: float) -> torch.Tensor:
+    """``uniform``'s map of f32 draws in [0, 1) onto [minval, maxval)."""
+    lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
     span = float(np.float32(maxval) - np.float32(minval))
     if span == 0.0 or math.frexp(span)[0] in (0.5, -0.5):
         return torch.maximum(lo, f * (hi - lo) + lo)
@@ -212,10 +219,16 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
-    """f32 inverse error function with XLA's polynomial."""
+    """f32 inverse error function with XLA's polynomial.
+
+    The square root is taken in f64 and rounded once, which is the
+    correctly rounded f32 root XLA takes: torch's f32 ``sqrt`` on a large
+    CPU tensor is not always correctly rounded, and which elements it
+    misses varies from one process to the next."""
     w = -torch.log1p(x * -x)
     lt5 = w < 5.0
-    w = torch.where(lt5, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt5, w - 2.5,
+                    torch.sqrt(w.to(torch.float64)).to(torch.float32) - 3.0)
     p = torch.where(lt5, _ERFINV_LT5[0], _ERFINV_GE5[0]).to(torch.float32)
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
         p = torch.where(lt5, a, b).to(torch.float32) + p * w
@@ -226,11 +239,30 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2_F32 = float(np.float32(np.sqrt(2)))
 
 
+#: elements a ``normal`` draw hashes at once: its ~200 int64 temporaries
+#: of a slab take a few GB at most (a 256000 x 2304 embedding drawn whole
+#: would hold several 4.7 GB ones)
+NORMAL_SLAB = 1 << 24
+
+
 def normal(key: torch.Tensor, shape: Sequence[int],
            device=None) -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)``."""
-    u = uniform(key, shape, _NORMAL_LO, 1.0, device=device)
-    return _SQRT2_F32 * erf_inv(u)
+    """``jax.random.normal(key, shape, float32)``.
+
+    Drawn over the flat index in slabs of ``NORMAL_SLAB`` elements, each
+    slab hashing its own counters, so the bits are those of one draw."""
+    n = int(np.prod(shape)) if len(shape) else 1
+    slab = NORMAL_SLAB
+    if n <= slab:
+        u = uniform(key, shape, _NORMAL_LO, 1.0, device=device)
+        return _SQRT2_F32 * erf_inv(u)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    for lo in range(0, n, slab):
+        b0, b1 = counter_words(key, min(slab, n - lo), device=device,
+                               start=lo)
+        u = _unit_to_range(_bits_to_unit(b0 ^ b1), _NORMAL_LO, 1.0)
+        out[lo:lo + slab] = _SQRT2_F32 * erf_inv(u)
+    return out.reshape(tuple(shape))
 
 
 _INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1

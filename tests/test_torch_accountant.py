@@ -115,12 +115,10 @@ def test_plan_dp_fl_and_compare_constant_equal_reference(kw):
     jfl, jsel = J.plan_dp_fl(**kw)
     tfl, tsel = T.plan_dp_fl(**kw)
     assert dataclasses.asdict(tsel) == dataclasses.asdict(jsel)
-    # the port's FLConfig has the reference's protocol fields; the engine
-    # default differs (the port defaults to the device engine)
+    # every field of the planned FLConfig, the engine among them
     jd, td = dataclasses.asdict(jfl), dataclasses.asdict(tfl)
-    for key in ("n_clients", "sample_seq", "step_size", "dp",
-                "total_grads", "d", "seed", "client_weights",
-                "cohort_block"):
+    assert td.keys() == jd.keys()
+    for key in jd:
         assert td[key] == jd[key], key
     assert T.compare_constant(tsel) == J.compare_constant(jsel)
     assert tfl.dp.enabled and tfl.sample_seq.kind == "power"
