@@ -77,13 +77,28 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    ``prefill_into_cache`` over a 32-token prompt and 16 greedy decode
    steps, its prompt logits against the kernels' prefill pass; then
    ``python -m repro_torch.launch.serve`` for both archs, as users start
-   it (exit 0).  Peak memory per model.
+   it (exit 0).  Peak memory per model;
+13. ``model_train``: (a) one ``BatchModelTask`` step of gemma2-2b at full
+   width (f32, B 1, S 1024) through the plain cores under autograd, its
+   loss against the kernels' route, U the step's gradient and w = w0 -
+   eta U bit for bit, with its wall, peak memory and the attention cores'
+   share of the gradient pass (CUDA events in autograd hooks); (b)
+   mamba2-780m (``TRAIN_COHORT``; D ~ 7.8e8 at its 48 layers, or at a
+   stated depth cut) for three rounds on the device engine without DP,
+   with operand noise and with in-kernel noise, the host engine bit for
+   bit against the first two, the event simulator against the first
+   (integers exact, ``EVENT_*_ATOL``), the engine's reckoned rows beside
+   the peak memory; then rows 1-5 at that D against their plain versions
+   slab by slab, each timed and bounded; (c) ``python -m
+   repro_torch.launch.train`` at full width with a checkpoint that loads
+   back through ``load_fl_state``, and reduced with DP.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (launches from the path that runs each kernel most: the tick kernels'
 from the scenario runs, with the main run's and the host engine's beside
 them; attention and the SSD from phase 12, the one-layer phases' beside
-them), and, last,
+them; rows 1-5 also with phase 13's launches and time at model D), and,
+last,
 ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line; so does a machine without CUDA.
 """
@@ -190,6 +205,40 @@ MODEL_BF16_ROW_REL_L2 = 1e-1
 # suite's tolerance for it (tests/test_models_smoke.py,
 # test_decode_matches_forward)
 DECODE_RTOL, DECODE_ATOL = 2e-2, 2e-3
+
+# phase 13, training at model scale.  (a) One BatchModelTask step of
+# gemma2-2b at full width and depth, f32, B 1, S 1024, batches from the
+# reference's SeedAddressedBatcher.  (b) mamba2-780m at full width on the
+# cohort engines: C 2, d 1, the three-way-parity configuration of the
+# reference's model tests (sizes [1, 1, 2], speeds [1.0, 0.8], block 4,
+# deterministic latency of 0.05 s, inside one tick), B 2, S 256, three
+# rounds; without DP, then with DP (per-step clip 1.0, sigma 8.0) once with
+# operand and once with in-kernel noise.  ``layers`` cuts its depth where
+# the device engine's rows do not fit the card (None: all 48).  (c) The
+# train driver as users start it.
+TRAIN_STEP = dict(arch="gemma2-2b", B=1, S=1024, eta=0.01)
+TRAIN_COHORT = dict(arch="mamba2-780m", layers=32, C=2, d=1,
+                    sizes=[[1, 1, 2]] * 2, etas=[0.1, 0.08, 0.06],
+                    speeds=[1.0, 0.8], block=4, latency=0.05, B=2, S=256,
+                    rounds=3, seed=0, clip=1.0, sigma=8.0)
+TRAIN_DRIVER = (["--arch", "mamba2-780m", "--rounds", "3", "--clients", "2",
+                 "--batch", "2", "--seq", "256"],
+                ["--arch", "gemma2-2b", "--reduced", "--dp"])
+# phase 13 (b), f32: the event simulator against the device engine's run
+# without DP.  Both run the same steps on the same batches; the server
+# applies each update alone in the event simulator and a tick's arrivals
+# as one summed bucket in the cohort engines, so the models part by a few
+# ulp of v a round.  The reference's own model tests hold event and cohort
+# engines to 1e-5 (models) and 5e-6 (eval losses) on a tiny model, and to
+# 5e-5 / 2e-5 on a larger one, and so does this phase.  Its CPU
+# rehearsal (reduced mamba2-780m, 2 layers, d_model 256, this
+# configuration) read 2.4e-7 (model) and 9.5e-7 (losses)
+EVENT_MODEL_ATOL = 5e-5
+EVENT_LOSS_ATOL = 2e-5
+# columns of one slab where phase 13 holds a kernel's output at model D
+# against its plain version slab by slab (the plain version's temporaries
+# of a whole [C, D] block would not fit beside the engine's rows)
+MODEL_D_SLAB = 1 << 24
 
 # tolerances where a kernel reorders a float sum: the error of a
 # reordered f32 sum of n terms is bounded by a small multiple of
@@ -397,12 +446,14 @@ def phase_kernels(dev, logs):
     fl = torch.tensor(True, device=dev)
     ms = median_ms(lambda: bucket_apply(v, rows, dec, fl))
     pms = median_ms(lambda: bucket_apply_ref(v, rows, dec, fl))
+    # one PyTorch call computing v - rows^T dec (the flag on)
+    lms = median_ms(lambda: torch.addmv(v, rows.T, dec, alpha=-1))
     bms, by = bound(f4 * (3 * D + 1) + 4, 2 * D)
     out.append(dict(name="bucket_apply", route="cuda",
                     source="src/repro_torch/csrc/tick_fused.cu",
                     replaces="src/repro/kernels/tick_fused/kernel.py:78",
                     max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                    bound_by=by, library_ms=None))
+                    bound_by=by, library_ms=lms))
 
     # -- tick_deliver ------------------------------------------------------
     w, U, bc_v = randn(C, D), randn(C, D), randn(B, D)
@@ -1072,13 +1123,20 @@ def fingerprint(sim, res):
     }
 
 
+def loss_bits(losses):
+    """The losses as bytes: equal for equal values, and for NaN from the
+    same computation (a DP run whose noise overwhelms the model)."""
+    import struct
+    return [struct.pack("<d", x) for x in losses]
+
+
 def same_run(host, device, what: str) -> None:
     """Fail unless the host engine's fingerprint is the device engine's."""
     bad = [k for k in device["ints"] if host["ints"][k] != device["ints"][k]]
     if bad:
         fail(f"{what}: integer fields {bad} differ between the host and "
              f"device engines")
-    if host["losses"] != device["losses"]:
+    if loss_bits(host["losses"]) != loss_bits(device["losses"]):
         fail(f"{what}: losses {host['losses']} vs device "
              f"{device['losses']}")
     for f in ("w", "U", "v"):
@@ -1088,6 +1146,8 @@ def same_run(host, device, what: str) -> None:
 
 HOST_PATH = ("bucket_apply", "tick_deliver", "tick_scatter",
              "cohort_clip_noise")
+# the kernels of phase 13's model-scale cohort runs (rows 1-5)
+TRAIN_PATH = HOST_PATH + ("cohort_clip_noise_prng",)
 
 
 def phase_host_engine(dev, X, y, kw, main_fp, scenario_fps):
@@ -2112,6 +2172,529 @@ def phase_model_serve(dev):
     return counts
 
 
+def event_ms(fn, reps: int = 5) -> float:
+    """Median device time of one eager call (CUDA events around it, one
+    warm-up): for calls of milliseconds at model size, where a CUDA graph
+    of several calls would hold several sets of outputs."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+class core_timer:
+    """Wrap an attention or SSD core so that CUDA events time each call's
+    forward and, through tensor hooks, its backward: the backward starts
+    when the gradient of the core's output arrives and ends when the last
+    gradient of its inputs is made (autograd runs a core's backward nodes
+    together: they were made together).  ``ms()`` sums both, after a
+    sync."""
+
+    def __init__(self, core):
+        self.core, self.fwd, self.bwd = core, [], []
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
+
+        e0 = event()
+        out = self.core(*args, **kw)
+        self.fwd.append((e0, event()))
+        y = out[0] if isinstance(out, tuple) else out
+        ins = [a for a in args if torch.is_tensor(a) and a.requires_grad]
+        if y.requires_grad and ins:
+            span = {}
+            self.bwd.append(span)
+            y.register_hook(lambda g: span.__setitem__("s", event()))
+            for a in ins:
+                a.register_hook(lambda g: span.__setitem__("e", event()))
+        return out
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        f = sum(a.elapsed_time(b) for a, b in self.fwd)
+        b = sum(sp["s"].elapsed_time(sp["e"]) for sp in self.bwd
+                if "s" in sp and "e" in sp)
+        return f, b
+
+
+def timed_grad(task, params, batch, attr: str):
+    """One ``loss_and_grad`` of ``task`` with its ``attr`` core timed:
+    (step ms, core forward ms, core backward ms, calls)."""
+    import torch
+    timer = core_timer(getattr(task, attr))
+    setattr(task, attr, timer)
+    try:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        task.loss_and_grad(params, batch)
+        e1.record()
+        e1.synchronize()
+        f, b = timer.ms()
+    finally:
+        setattr(task, attr, timer.core)
+    return e0.elapsed_time(e1), f, b, len(timer.fwd)
+
+
+def model_train_step(dev):
+    """Phase 13 (a): one ``BatchModelTask`` step of gemma2-2b at full
+    width.  Its loss against ``train_loss`` through the kernels under no
+    grad (phase 12's f32 limit), U against the step's own gradient, w
+    against w0 - eta U bit for bit; wall, peak memory and the share of
+    the attention cores' forward and backward."""
+    import torch
+    from repro_torch import prng, tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import BatchModelTask
+    from repro_torch.data import SeedAddressedBatcher
+    from repro_torch.models import init_params, train_loss
+
+    ts = TRAIN_STEP
+    cfg = get_config(ts["arch"])
+    what = f"model_train (a) {ts['arch']} B={ts['B']} S={ts['S']}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, prng.PRNGKey(0), torch.float32, device=dev)
+    batcher = SeedAddressedBatcher(cfg, batch_size=ts["B"],
+                                   seq_len=ts["S"], seed=0, device=dev)
+    task = BatchModelTask(cfg, params, batcher)
+    seen = {}
+    inner = task.loss_and_grad
+
+    def spy(p, b):
+        seen["loss"], seen["g"] = inner(p, b)
+        return seen["loss"], seen["g"]
+
+    task.loss_and_grad = spy
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, U = task.run_iterations(params, task.zero_update(), round_idx=0,
+                               client_id=0, start_h=0, n_iters=1,
+                               eta=ts["eta"], rng=prng.PRNGKey(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    task.loss_and_grad = inner
+    batch = batcher(0, 0, 0)
+    with torch.no_grad():
+        kloss = float(train_loss(cfg, params, batch))
+    rel = abs(task.last_loss - kloss) / abs(kloss)
+    if not rel <= MODEL_F32_TOL:
+        fail(f"{what}: the step's loss {task.last_loss} (plain cores) is "
+             f"{rel} off the kernels' {kloss} (> {MODEL_F32_TOL})")
+    e = float(torch.tensor(ts["eta"], dtype=torch.float32))
+    for p, u, g, nw in zip(tree.leaves(params), tree.leaves(U), seen["g"],
+                           tree.leaves(w)):
+        if not torch.equal(u, g):
+            fail(f"{what}: U is not the step's gradient")
+        if not bits_equal(nw, p - e * g):
+            fail(f"{what}: w is not w0 - eta * U bit for bit")
+    gnorm = float(torch.sqrt(sum(torch.sum(g * g) for g in seen["g"])))
+    del w, U, seen
+    step_ms, f_ms, b_ms, calls = timed_grad(task, params, batch,
+                                            "attn_core")
+    print(f"phase model_train: {what} layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} vocab={cfg.vocab_size} step_wall_s={wall} "
+          f"loss={task.last_loss} kernel_route_loss={kloss} rel={rel} "
+          f"grad_norm={gnorm} peak_mem_gb={peak / 2 ** 30} "
+          f"timed_step_ms={step_ms} attn_core_fwd_ms={f_ms} "
+          f"attn_core_bwd_ms={b_ms} attn_core_calls={calls} "
+          f"attn_core_share={(f_ms + b_ms) / step_ms}")
+    del params, task
+    torch.cuda.empty_cache()
+    return dict(step_wall_s=wall, peak_gb=peak / 2 ** 30,
+                attn_share=(f_ms + b_ms) / step_ms)
+
+
+def engine_rows(eng) -> dict:
+    """The device engine's [*, D] f32 rows: held in its state, and at
+    most alive at once in a completion tick (the state, the tick's new v,
+    cleared ring and broadcast rows, the SGD block's copies of w and U
+    and one gradient, the sent rows, tick_scatter's w, U, ring rows and
+    block partials)."""
+    C, L, B, Q = eng.C, eng.L, eng.B, eng.Q
+    held = 2 * C + 1 + L + B + Q
+    return dict(held=held, peak=held + 1 + L + B + 2 * C + 1 + C
+                + 2 * C + L + L)
+
+
+def model_cohort(dev):
+    """Phase 13 (b): mamba2-780m on the device engine, the host engine
+    and the event simulator (``TRAIN_COHORT``); returns the launches,
+    walls and the kernels' times at model D."""
+    import dataclasses
+
+    import torch
+    import repro_torch as rt
+    from repro_torch import prng, tree
+    from repro_torch.cohort import PyTreeFlattener
+    from repro_torch.configs import get_config
+    from repro_torch.core import BatchModelTask
+    from repro_torch.data import SeedAddressedBatcher
+    from repro_torch.kernels import launches
+    from repro_torch.models import init_params
+
+    tc = TRAIN_COHORT
+    cfg = get_config(tc["arch"])
+    full_layers = cfg.n_layers
+    if tc["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=tc["layers"])
+    t0 = time.perf_counter()
+    params = init_params(cfg, prng.PRNGKey(tc["seed"]), torch.float32,
+                         device=dev)
+    batcher = SeedAddressedBatcher(cfg, batch_size=tc["B"], seq_len=tc["S"],
+                                   seed=tc["seed"], device=dev)
+    D = sum(l.numel() for l in tree.leaves(params))
+    # D at the config's own depth, for the reckoning of the cut
+    D_full = D + (full_layers - cfg.n_layers) * (sum(
+        l.numel() for l in tree.leaves(params["blocks"])) // cfg.n_layers)
+    print(f"phase model_train: (b) {tc['arch']} layers={cfg.n_layers} of "
+          f"{full_layers} d_model={cfg.d_model} D={D} (D at {full_layers} "
+          f"layers: {D_full}) row_gb={4 * D / 1e9} init_s="
+          f"{time.perf_counter() - t0}")
+
+    def task(dp: bool):
+        return BatchModelTask(cfg, params, batcher,
+                              dp_clip=tc["clip"] if dp else 0.0,
+                              dp_sigma=tc["sigma"] if dp else 0.0)
+
+    step_ms, f_ms, b_ms, calls = timed_grad(task(False), params,
+                                            batcher(0, 0, 0), "ssd_fn")
+    print(f"phase model_train: (b) one step's gradient: ms={step_ms} "
+          f"ssd_core_fwd_ms={f_ms} ssd_core_bwd_ms={b_ms} calls={calls} "
+          f"ssd_core_share={(f_ms + b_ms) / step_ms}")
+    kw = dict(n_clients=tc["C"], sizes_per_client=tc["sizes"],
+              round_stepsizes=tc["etas"], d=tc["d"], seed=tc["seed"],
+              speeds=tc["speeds"], device=dev)
+    lat = tc["latency"]
+    engines = {
+        "device": lambda dp, rng: rt.DeviceCohortSimulator(
+            task(dp), latency=lat, block=tc["block"], dp_rng=rng, **kw),
+        "host": lambda dp, rng: rt.CohortSimulator(
+            task(dp), latency_fn=lambda r: lat, block=tc["block"], **kw),
+        "event": lambda dp, rng: rt.AsyncFLSimulator(
+            task(dp), latency_fn=lambda r: lat, **kw)}
+    out = {"launches": {}, "walls": {}, "D": D, "layers": cfg.n_layers}
+    fps = {}
+    for name, dp, rng in (("device", False, "operand"),
+                          ("host", False, "operand"),
+                          ("device", True, "operand"),
+                          ("host", True, "operand"),
+                          ("device", True, "in_kernel"),
+                          ("event", False, "operand")):
+        tag = f"{name} dp={dp}" + (f" {rng}" if dp and name == "device"
+                                   else "")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sim = engines[name](dp, rng)
+        launches.reset()
+        res, wall = timed_run(sim, tc["rounds"], 1)
+        counts = dict(launches.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        rows = engine_rows(sim.engine) if name == "device" else None
+        if name == "event":
+            tel = res["telemetry"]
+            fp = {"ints": {"rounds": tel.rounds, "messages": tel.messages,
+                           "broadcasts": tel.broadcasts,
+                           "participation": [int(x) for x in
+                                             tel.participation],
+                           "staleness_hist": [int(x) for x in
+                                              tel.staleness_hist]},
+                  "losses": [h["loss"] for h in res["history"]]
+                  + [res["final"]["loss"]],
+                  "v": PyTreeFlattener(params).flatten(res["model"]).cpu()}
+        else:
+            fp = fingerprint(sim, res)
+            fp["blocks"] = {k: v.cpu() for k, v in fp["blocks"].items()}
+        print(f"phase model_train: (b) {tag}: rounds={res['final']['round']}"
+              f" messages={res['final']['messages']} wall_s={wall} "
+              f"peak_mem_gb={peak / 2 ** 30} launches={counts} losses="
+              f"{fp['losses']}"
+              + (f" rows_held={rows['held']} rows_peak={rows['peak']} "
+                 f"reckoned_peak_gb={rows['peak'] * 4 * D / 2 ** 30} "
+                 f"at_{full_layers}_layers="
+                 f"{rows['peak'] * 4 * D_full / 2 ** 30}"
+                 if rows else ""))
+        # with DP the noise (std clip * sigma = 8 a coordinate) overwhelms
+        # the model and its loss may overflow, in the reference as here;
+        # those runs are held bit for bit between the engines instead
+        if not dp and not all(math.isfinite(x) for x in fp["losses"]):
+            fail(f"phase model_train (b) {tag}: a loss is not finite")
+        fps[tag] = fp
+        out["launches"][tag] = counts
+        out["walls"][tag] = wall
+        del sim, res
+        torch.cuda.empty_cache()
+    same_run(fps["host dp=False"], fps["device dp=False"],
+             "phase model_train (b) without DP")
+    same_run(fps["host dp=True"], fps["device dp=True operand"],
+             "phase model_train (b) operand noise")
+    ik, op = fps["device dp=True in_kernel"], fps["device dp=True operand"]
+    if ik["ints"] != op["ints"]:
+        fail("phase model_train (b): in-kernel noise changed the protocol")
+    if ik["losses"][0] == op["losses"][0]:
+        fail("phase model_train (b): the two noise sources gave one model")
+    ev, dv = fps["event dp=False"], fps["device dp=False"]
+    bad = [k for k, x in ev["ints"].items() if x != dv["ints"][k]]
+    if bad:
+        fail(f"phase model_train (b): the event simulator's {bad} differ "
+             f"from the device engine's")
+    loss_d = max(abs(a - b) for a, b in zip(ev["losses"], dv["losses"]))
+    model_d = float((ev["v"] - dv["blocks"]["v"]).abs().max())
+    print(f"phase model_train: (b) event vs device engine: ints equal, "
+          f"max loss diff {loss_d} (limit {EVENT_LOSS_ATOL}), max model "
+          f"diff {model_d} (limit {EVENT_MODEL_ATOL})")
+    if not (loss_d <= EVENT_LOSS_ATOL and model_d <= EVENT_MODEL_ATOL):
+        fail("phase model_train (b): the event simulator is outside its "
+             "limits against the cohort engines")
+    del fps, params
+    torch.cuda.empty_cache()
+    out["kernels"] = model_d_kernels(dev, tc["C"], D)
+    return out
+
+
+def model_d_kernels(dev, C: int, D: int) -> dict:
+    """Rows 1-5 at model D: each wrapper's output against its plain
+    version slab by slab (bitwise, or the phase 1 limits), then the
+    median time of one launch and its bound.  Not counted as launches
+    of the path (the counts are read before)."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.analysis.salts import NOISE_SALT
+    from repro_torch.cohort.state import next_pow2
+    from repro_torch.kernels.cohort_dp import (cohort_clip_noise,
+                                               cohort_clip_noise_prng)
+    from repro_torch.kernels.cohort_dp.ref import (cohort_clip_noise_ref,
+                                                   counter_normals)
+    from repro_torch.kernels.tick_fused import (bucket_apply,
+                                                bucket_apply_ref,
+                                                tick_deliver,
+                                                tick_deliver_ref,
+                                                tick_scatter,
+                                                tick_scatter_ref)
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    B, L, f4 = next_pow2(TRAIN_COHORT["d"] + 2), 2, 4
+    done = torch.tensor([True, False][:C] + [True] * (C - 2), device=dev)
+    eta = torch.full((C,), 0.1, device=dev)
+    nd = int(done.sum())
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def slabs():
+        return ((lo, min(lo + MODEL_D_SLAB, D))
+                for lo in range(0, D, MODEL_D_SLAB))
+
+    def record(name, ms, bnd, lib=None):
+        bms, by = bnd
+        out[name] = dict(ms_model_D=ms, bound_model_D_ms=bms,
+                         bound_model_D_by=by, library_model_D_ms=lib)
+        print(f"phase model_train: {name} at C={C} D={D}: ms={ms} "
+              f"bound_ms={bms} ({by})"
+              + (f" library_ms={lib}" if lib is not None else ""))
+
+    # bucket_apply, A = 1, flag on
+    v, rows = randn(D), randn(1, D)
+    dec, fl = torch.ones(1, device=dev), torch.tensor(True, device=dev)
+    k = bucket_apply(v, rows, dec, fl)
+    for lo, hi in slabs():
+        if not bits_equal(k[lo:hi], bucket_apply_ref(v[lo:hi],
+                                                     rows[:, lo:hi], dec,
+                                                     fl)):
+            fail(f"bucket_apply at D={D}: not bitwise at [{lo}, {hi})")
+    del k
+    lib = event_ms(lambda: torch.addmv(v, rows.T, dec, alpha=-1))
+    record("bucket_apply", event_ms(lambda: bucket_apply(v, rows, dec, fl)),
+           bound(f4 * 3 * D, 2 * D), lib=lib)
+    del v, rows
+
+    # tick_deliver: row 0 takes broadcast 1, row 1 keeps w
+    w, U, bc_v = randn(C, D), randn(C, D), randn(B, D)
+    best = torch.ones(C, dtype=torch.int64, device=dev)
+    take = done.clone()
+    k = tick_deliver(w, U, bc_v, best, take, eta)
+    for lo, hi in slabs():
+        p = tick_deliver_ref(w[:, lo:hi], U[:, lo:hi], bc_v[:, lo:hi], best,
+                             take, eta)
+        if not bits_equal(k[:, lo:hi].contiguous(), p):
+            fail(f"tick_deliver at D={D}: not bitwise at [{lo}, {hi})")
+    del k
+    nt = int(take.sum())
+    # taken rows read U and their broadcast row, the others w
+    record("tick_deliver",
+           event_ms(lambda: tick_deliver(w, U, bc_v, best, take, eta)),
+           bound(f4 * (nt * D + (C - nt) * D + D + C * D), 2 * nt * D))
+    del bc_v
+
+    # tick_scatter: the done row into ring row 0, ring row 1 unreached
+    sent, upd = randn(C, D), randn(L, D)
+    wgt = torch.stack([eta * done.float(), torch.zeros_like(eta)])
+    any_g = wgt.abs().sum(1) > 0
+    kw, ku, kr = tick_scatter(sent, w, U, upd, wgt, any_g, done, eta,
+                              dp_on=True)
+    for lo, hi in slabs():
+        pw, pu, pr = tick_scatter_ref(sent[:, lo:hi], w[:, lo:hi],
+                                      U[:, lo:hi], upd[:, lo:hi], wgt,
+                                      any_g, done, eta, dp_on=True)
+        if not (bits_equal(kw[:, lo:hi].contiguous(), pw)
+                and bits_equal(ku[:, lo:hi].contiguous(), pu)):
+            fail(f"tick_scatter at D={D}: w / U not bitwise at "
+                 f"[{lo}, {hi})")
+        tol = SUM_RTOL * (wgt.abs() @ sent[:, lo:hi].abs()) + 1e-30
+        if not bool(((kr[:, lo:hi] - pr).abs() <= tol).all()):
+            fail(f"tick_scatter at D={D}: ring rows off at [{lo}, {hi})")
+    del kw, ku, kr
+    record("tick_scatter", event_ms(lambda: tick_scatter(
+        sent, w, U, upd, wgt, any_g, done, eta, dp_on=True)),
+        scatter_bound(C, D, L, nd))
+    del sent, upd, w
+
+    # cohort_clip_noise, operand noise, no round clip (the path's call)
+    noise = randn(C, D)
+    wts = eta * done.float()
+    ns = TRAIN_COHORT["clip"] * TRAIN_COHORT["sigma"]
+    k, _ = cohort_clip_noise(U, noise, wts, done, clip=0.0, noise_scale=ns,
+                             with_agg=False)
+    for lo, hi in slabs():
+        p, _ = cohort_clip_noise_ref(U[:, lo:hi], noise[:, lo:hi], wts,
+                                     done, clip=0.0, noise_scale=ns,
+                                     with_agg=False)
+        if not bits_equal(k[:, lo:hi].contiguous(), p):
+            fail(f"cohort_clip_noise at D={D}: not bitwise at "
+                 f"[{lo}, {hi})")
+    del k
+    # read u and the masked rows' noise, write out
+    record("cohort_clip_noise", event_ms(lambda: cohort_clip_noise(
+        U, noise, wts, done, clip=0.0, noise_scale=ns, with_agg=False)),
+        bound(f4 * (2 * C * D + nd * D + 2 * C), 2 * nd * D))
+    del noise
+
+    # cohort_clip_noise_prng: the counter normals of flat index c * D + d,
+    # past 2**31 for the second row
+    key = prng.fold_in(prng.PRNGKey(TRAIN_COHORT["seed"] ^ NOISE_SALT), 7)
+    k, _ = cohort_clip_noise_prng(U, key, wts, done, clip=0.0,
+                                  noise_scale=ns, with_agg=False)
+    err = 0.0
+    for c in range(C):
+        for lo, hi in slabs():
+            n = counter_normals(key, 1, hi - lo, device=dev,
+                                start=c * D + lo)
+            p, _ = cohort_clip_noise_ref(U[c:c + 1, lo:hi], n, wts[c:c + 1],
+                                         done[c:c + 1], clip=0.0,
+                                         noise_scale=ns, with_agg=False)
+            got = k[c:c + 1, lo:hi]
+            if not bool(done[c]):
+                ok = bits_equal(got.contiguous(), p)
+            else:
+                ok = bool(((got - p).abs() <= ROW_RTOL * (
+                    U[c:c + 1, lo:hi].abs() + ns * n.abs())).all())
+            if not ok:
+                fail(f"cohort_clip_noise_prng at D={D}: row {c} off at "
+                     f"[{lo}, {hi})")
+            err = max(err, float((got - p).abs().max()))
+    del k
+    hashed = nd * D
+    record("cohort_clip_noise_prng", event_ms(lambda: cohort_clip_noise_prng(
+        U, key, wts, done, clip=0.0, noise_scale=ns, with_agg=False)),
+        bound(f4 * (2 * C * D + C), PRNG_F32_OPS * hashed,
+              PRNG_INT_OPS * hashed))
+    out["cohort_clip_noise_prng"]["max_abs_err_model_D"] = err
+    del U
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_train_driver(dev):
+    """Phase 13 (c): ``python -m repro_torch.launch.train`` as users
+    start it, at full width with a checkpoint that must load back
+    through ``load_fl_state``, and reduced with DP."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch import prng, tree
+    from repro_torch.checkpoint import load_fl_state
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    walls = []
+    try:
+        for i, args in enumerate(TRAIN_DRIVER):
+            ck = os.path.join(tmp, f"ck{i}")
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m",
+                                "repro_torch.launch.train", *args,
+                                "--checkpoint", ck], cwd=HERE, env=env,
+                               capture_output=True, text=True, timeout=900)
+            wall = time.perf_counter() - t0
+            walls.append(wall)
+            if r.returncode:
+                fail(f"python -m repro_torch.launch.train {' '.join(args)} "
+                     f"exited {r.returncode}: {r.stderr[-2000:]}")
+            print(f"phase model_train: (c) python -m repro_torch.launch."
+                  f"train {' '.join(args)}: exit 0 in {wall} s: "
+                  + " | ".join(r.stdout.strip().splitlines()))
+            if i == 0:
+                # the full-width run's checkpoint, into a template of the
+                # model on the card (another seed: every leaf is replaced)
+                tmpl = init_params(get_config(args[1]), prng.PRNGKey(1),
+                                   torch.float32, device=dev)
+                model, k = load_fl_state(ck, tmpl)
+                pairs = list(zip(tree.leaves(model), tree.leaves(tmpl)))
+                n = sum(a.numel() for a, _ in pairs)
+                ok = (k == 3 and all(
+                    a.shape == b.shape and a.dtype == b.dtype
+                    and a.device == b.device and bool(torch.isfinite(a).all())
+                    for a, b in pairs)
+                    and any(not torch.equal(a, b) for a, b in pairs))
+                print(f"phase model_train: (c) checkpoint of {args[1]} "
+                      f"loads: server_k={k} params={n} ok={ok}")
+                if not ok:
+                    fail(f"(c) the checkpoint of {args[1]} does not load "
+                         f"back as the model")
+                del model, tmpl, pairs
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return walls
+
+
+def phase_model_train(dev):
+    """Phase 13: (a), (b) and (c) above; returns the launches of the
+    model-scale cohort runs and the kernels' times at model D."""
+    t0 = time.perf_counter()
+    a = model_train_step(dev)
+    print(f"phase model_train: (a) wall_s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    b = model_cohort(dev)
+    print(f"phase model_train: (b) wall_s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    c = model_train_driver(dev)
+    print(f"phase model_train: (c) wall_s={time.perf_counter() - t0} "
+          f"driver_walls_s={c}")
+    return a, b
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2181,6 +2764,22 @@ def main() -> int:
     model_counts = phase_model_serve(dev)
     print(f"phase model_serve: wall_s={time.perf_counter() - t0} "
           f"launches={model_counts}")
+    t0 = time.perf_counter()
+    train_step, train = phase_model_train(dev)
+    # the model-scale runs' launches: the device engine's three runs, the
+    # host engine's two beside them; each of rows 1-5 at least once
+    train_counts = {"device": {}, "host": {}}
+    for tag, cnt in train["launches"].items():
+        side = tag.split()[0]
+        if side in train_counts:
+            for name, n in cnt.items():
+                train_counts[side][name] = train_counts[side].get(name,
+                                                                  0) + n
+    for name in TRAIN_PATH:
+        if not train_counts["device"].get(name):
+            fail(f"phase model_train: {name} was not launched at model D")
+    print(f"phase model_train: wall_s={time.perf_counter() - t0} "
+          f"launches={train_counts} step={train_step}")
     # launches: each kernel's count from the path that runs it most: the
     # scenario runs (in-kernel noise) for the tick kernels, each on every
     # tick or completion tick there (the main run's count and the host
@@ -2204,6 +2803,11 @@ def main() -> int:
             k["launches_host"] = host_counts[k["name"]]
         if k["name"] == "clip_accumulate":
             k.update(dp_split)
+        if k["name"] in TRAIN_PATH:
+            k["launches_model"] = train_counts["device"][k["name"]]
+            k["launches_model_host"] = train_counts["host"].get(k["name"],
+                                                                0)
+            k.update(train["kernels"][k["name"]])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # then each kernel's own extra keys (other shapes and dtypes, the

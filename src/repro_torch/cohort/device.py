@@ -707,9 +707,17 @@ class DeviceCohortEngine:
             "segment", engine="device", round=int(st.server_k),
             tick=int(st.tick), time=int(st.tick) * self.dt,
             messages=int(st.messages), broadcasts=int(st.broadcasts),
-            bytes_up_total=int(st.bytes_up.to(torch.int64).sum()),
+            bytes_up_total=int(self._bytes_up().sum()),
             staleness_hist=st.stale_hist.cpu().numpy(),
             overflow_hwm=int(st.ovf_hwm), ops=st.ops.cpu().numpy())
+
+    def _bytes_up(self) -> np.ndarray:
+        """Uplink bytes per client, int64: every update message of a run
+        has one size, so messages x size.  The state's int32 counter (the
+        reference's layout) wraps past 2**31 bytes, one message of a
+        model of 5.4e8 parameters."""
+        return (self.state.part.cpu().numpy().astype(np.int64)
+                * self.upd_bytes)
 
     def telemetry_report(self, wall=None):
         """MetricsReport from the on-device counters (reads the state)."""
@@ -720,12 +728,13 @@ class DeviceCohortEngine:
             rounds=int(st.server_k), messages=int(st.messages),
             broadcasts=int(st.broadcasts),
             participation=st.part.cpu().numpy().astype(np.int64),
-            bytes_up=st.bytes_up.cpu().numpy().astype(np.int64),
+            bytes_up=self._bytes_up(),
             staleness_hist=st.stale_hist.cpu().numpy().astype(np.int64),
             overflow_hwm=int(st.ovf_hwm),
             overflow_slots=self.overflow_slots,
             far_messages=int(st.far_msgs), ticks=int(st.tick),
             ops=st.ops.cpu().numpy().astype(np.int64),
             dp_sigma=self.dp_sigma, dp_delta=self.dp_delta,
-            n_examples=int(src_task.X.shape[0]),
+            n_examples=(int(src_task.X.shape[0])
+                        if hasattr(src_task, "X") else None),
             sizes_per_client=self.sizes, wall=wall)

@@ -516,6 +516,7 @@ class CohortEngine:
     def telemetry_report(self, wall=None):
         """MetricsReport from the counters accumulated so far."""
         st = self.state
+        src_task = self.ctask.task
         return build_report(
             engine="host", clients=self.C, flat_dim=self.D,
             rounds=int(st.server_k), messages=self.total_messages,
@@ -525,5 +526,6 @@ class CohortEngine:
             overflow_hwm=self.ovf_hwm, far_messages=self.far_messages,
             ticks=int(st.tick), ops=self.ops,
             dp_sigma=self.dp_sigma, dp_delta=self.dp_delta,
-            n_examples=int(self.ctask.task.X.shape[0]),
+            n_examples=(int(src_task.X.shape[0])
+                        if hasattr(src_task, "X") else None),
             sizes_per_client=self.sizes, wall=wall)

@@ -14,20 +14,25 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 from repro_torch.cohort.device import DeviceCohortEngine, resolve_device
 from repro_torch.cohort.engine import CohortEngine
+from repro_torch.cohort.flat import CohortBatchModelTask
 from repro_torch.cohort.tasks import CohortLogRegTask
-from repro_torch.core.tasks import LogRegTask
+from repro_torch.core.tasks import BatchModelTask, LogRegTask
 
 
 def as_cohort_task(task, n_clients: int, *, seed: int = 0, device=None):
-    """Adapt a ``LogRegTask`` (or pass through a cohort task)."""
-    if isinstance(task, CohortLogRegTask):
+    """Adapt a ``LogRegTask`` or a ``BatchModelTask`` to the cohort
+    engines on ``device`` (or pass through a cohort task: any object
+    with ``run_block``)."""
+    if hasattr(task, "run_block"):
         return task
     if isinstance(task, LogRegTask):
         return CohortLogRegTask(task, n_clients, seed=seed,
                                 device=resolve_device(device))
-    raise NotImplementedError(
-        f"no cohort adapter for {type(task).__name__}: the model-scale "
-        "path is ROADMAP Queue 1 item 11")
+    if isinstance(task, BatchModelTask):
+        return CohortBatchModelTask(task, n_clients, seed=seed,
+                                    device=resolve_device(device))
+    raise TypeError(f"no cohort adapter for {type(task).__name__}; "
+                    "provide an object with run_block/init_flat/metrics")
 
 
 class _Front:

@@ -11,13 +11,24 @@ steps before the loop.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import prng
-from repro_torch.core.tasks import LogRegTask, clip_tree
+from repro_torch.core.tasks import LogRegTask
 from repro_torch.models import logreg
+
+
+def _clip_pairs(gw: torch.Tensor, gb: torch.Tensor, clip: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``clip_tree`` of each client's (w, b) gradient
+    pair, over the client axis: gw [C, d], gb [C], the norm over ``w``
+    and ``b`` together, summed in the reference's leaf order (``b``
+    first)."""
+    norm = torch.sqrt(gb * gb + (gw * gw).sum(dim=-1))
+    scale = 1.0 / torch.clamp(norm / clip, min=1.0)
+    return gw * scale[..., None], gb * scale
 
 
 class CohortLogRegTask:
@@ -83,7 +94,7 @@ class CohortLogRegTask:
             gw, gb = logreg.per_example_grad(pw, pb, self.X[ij], self.y[ij],
                                              l2)
             if clip > 0.0:
-                gw, gb = clip_tree(gw, gb, clip)
+                gw, gb = _clip_pairs(gw, gb, clip)
             act = (j < n).to(torch.float32)
             gw = act[:, None] * gw
             gb = act * gb

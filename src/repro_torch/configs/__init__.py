@@ -1,10 +1,11 @@
 from repro_torch.configs.base import (DPConfig, FLConfig, ModelConfig,
-                                      SampleSequenceConfig, StepSizeConfig,
-                                      reduced)
+                                      RunConfig, SampleSequenceConfig,
+                                      StepSizeConfig, reduced)
 from repro_torch.configs.paper_logreg import (fl_config_fig1a,
                                               fl_config_fig1b)
 from repro_torch.configs.registry import ASSIGNED_ARCHS, get_config, list_archs
 
 __all__ = ["ASSIGNED_ARCHS", "DPConfig", "FLConfig", "ModelConfig",
-           "SampleSequenceConfig", "StepSizeConfig", "fl_config_fig1a",
-           "fl_config_fig1b", "get_config", "list_archs", "reduced"]
+           "RunConfig", "SampleSequenceConfig", "StepSizeConfig",
+           "fl_config_fig1a", "fl_config_fig1b", "get_config", "list_archs",
+           "reduced"]

@@ -253,3 +253,15 @@ class FLConfig:
     cohort_block: int = 64        # iteration credit per cohort tick
     scenario: Optional[Any] = None     # scenario preset name or Scenario
     aggregation: Optional[Any] = None  # strategy spec (paper/fedasync/fedbuff)
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    fl: FLConfig = field(default_factory=FLConfig)
+    shape: str = "train_4k"
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    remat: bool = True
+    use_pallas: bool = False      # the reference's kernel switch: kept
+    #                               for its field set, read by nothing

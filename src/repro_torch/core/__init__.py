@@ -16,7 +16,8 @@ from repro_torch.core.strategies import (AggregationStrategy,
                                          FedAsyncStrategy, FedBuffStrategy,
                                          PaperStrategy, get_strategy,
                                          ring_decay)
-from repro_torch.core.tasks import LogRegTask, clip_tree, validate_dp_knobs
+from repro_torch.core.tasks import (BatchModelTask, LogRegTask, clip_tree,
+                                   global_norm, validate_dp_knobs)
 
 __all__ = [
     "ConstantDelay", "SqrtDelay", "Theorem5Delay",
@@ -29,5 +30,6 @@ __all__ = [
     "theorem5_round_stepsizes",
     "AggregationStrategy", "FedAsyncStrategy", "FedBuffStrategy",
     "PaperStrategy", "get_strategy", "ring_decay",
-    "LogRegTask", "clip_tree", "validate_dp_knobs",
+    "BatchModelTask", "LogRegTask", "clip_tree", "global_norm",
+    "validate_dp_knobs",
 ]

@@ -28,7 +28,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 from repro_torch import prng
 from repro_torch.core.strategies import get_strategy
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map
 
 
 @dataclass
@@ -105,7 +105,7 @@ class Client:
         self.id = client_id
         self.task = task
         self.w = w0
-        self.U = task.zero_update(device=w0["w"].device)
+        self.U = task.zero_update(device=leaves(w0)[0].device)
         self.sizes = list(sizes)               # s_{i,c}
         self.eta_bar = list(round_stepsizes)
         self.d = d
@@ -151,7 +151,8 @@ class Client:
         self.sent_rounds.append(self.i)
         self.i += 1
         self.h = 0
-        self.U = self.task.zero_update(device=self.w["w"].device)
+        self.U = self.task.zero_update(
+            device=leaves(self.w)[0].device)
         return msg
 
     def isr_receive(self, msg: BroadcastMsg) -> None:

@@ -97,9 +97,10 @@ __global__ void __launch_bounds__(512, 2)
   constexpr int NC = rowtiles::kColsPerThread;
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t sb = stage_bytes<T>(ld);
-  const int rb0 = blockIdx.x * rows_per_block;
+  // slabs on x, row blocks on y (gridDim.y is at most 65535)
+  const int rb0 = blockIdx.y * rows_per_block;
   const int rb1 = min(rb0 + rows_per_block, N);
-  const int c0 = blockIdx.y * slab;
+  const int c0 = blockIdx.x * slab;
   const int len = min(slab, D - c0);
   const int ntile = (rb1 - rb0 + TR - 1) / TR;
   const int tid = threadIdx.x;
@@ -164,7 +165,7 @@ __global__ void __launch_bounds__(512, 2)
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
     const int c = tid + k * blockDim.x;
-    if (c < len) partial[(size_t)blockIdx.x * D + c0 + c] = acc[k];
+    if (c < len) partial[(size_t)blockIdx.y * D + c0 + c] = acc[k];
   }
 }
 
@@ -188,7 +189,7 @@ int launch(const T* g, float* out, float* partial, float* scale, int N,
         clip_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (err != cudaSuccess) return (int)err;
-    clip_rows_kernel<T><<<dim3(part.blocks, sl.count), sl.threads, bytes,
+    clip_rows_kernel<T><<<dim3(sl.count, part.blocks), sl.threads, bytes,
                           stream>>>(g, scale_in, partial, N, D, sl.width,
                                     sl.ld, part.rows_per_block, clip);
     err = cudaGetLastError();

@@ -76,28 +76,37 @@ __global__ void bucket_apply_kernel(const float* __restrict__ v,
 }
 
 // w'[c] = take[c] ? bc_v[best[c]] - eta[c] * U[c] : w[c]; one block per
-// client row, threads stride over D (coalesced).  Pure selection plus
-// one rounded product and difference per element.
+// chunk of kDeliverChunk columns of a client row (one chunk a row at the
+// main run's D; a model-sized row is spread over the whole card), threads
+// stride over the chunk (coalesced).  Pure selection plus one rounded
+// product and difference per element.
+constexpr int kDeliverChunk = 8192;
+
 __global__ void tick_deliver_kernel(const float* __restrict__ w,
                                     const float* __restrict__ U,
                                     const float* __restrict__ bc_v,
                                     const int64_t* __restrict__ best,
                                     const bool* __restrict__ take,
                                     const float* __restrict__ eta,
-                                    float* __restrict__ out, int D) {
-  const size_t row = (size_t)blockIdx.x * D;
-  if (take[blockIdx.x]) {
-    const float e = eta[blockIdx.x];
-    const float* src = bc_v + (size_t)best[blockIdx.x] * D;
-    for (int d = threadIdx.x; d < D; d += blockDim.x)
+                                    float* __restrict__ out, int D,
+                                    int nchunk) {
+  const int c = blockIdx.x / nchunk;
+  const int d0 = (blockIdx.x - c * nchunk) * kDeliverChunk;
+  const int d1 = min(d0 + kDeliverChunk, D);
+  const size_t row = (size_t)c * D;
+  if (take[c]) {
+    const float e = eta[c];
+    const float* src = bc_v + (size_t)best[c] * D;
+    for (int d = d0 + threadIdx.x; d < d1; d += blockDim.x)
       out[row + d] = __fsub_rn(src[d], __fmul_rn(e, U[row + d]));
   } else {
-    for (int d = threadIdx.x; d < D; d += blockDim.x) out[row + d] = w[row + d];
+    for (int d = d0 + threadIdx.x; d < d1; d += blockDim.x)
+      out[row + d] = w[row + d];
   }
 }
 
-// tick_scatter's rows pass.  Block (b, y, z) owns client rows
-// [b * rows_per_block, ...) and the columns of slab y; it walks them in
+// tick_scatter's rows pass.  Block (x, b, z) owns the columns of slab x
+// and client rows [b * rows_per_block, ...); it walks them in
 // tiles of kScatterTileRows rows, each tile's sent, w and (on done rows,
 // with dp_on) U rows copied into shared memory while the previous tile is
 // used.  From the tile it writes w' and U' (z == 0 only) as 16-byte
@@ -118,9 +127,11 @@ __global__ void __launch_bounds__(512, 2) tick_scatter_rows_kernel(
   extern __shared__ __align__(16) float smem[];
   __shared__ bool sdone[3][TR];
   const int sf = scatter_stage_floats(KG, ld);
-  const int rb0 = blockIdx.x * rows_per_block;
+  // slabs on x (up to 2^31 - 1 of them: a model-sized D has ~10^6),
+  // row blocks on y (at most kMaxBlocks)
+  const int rb0 = blockIdx.y * rows_per_block;
   const int rb1 = min(rb0 + rows_per_block, C);
-  const int c0 = blockIdx.y * slab;
+  const int c0 = blockIdx.x * slab;
   const int len = min(slab, D - c0);
   const int g0 = blockIdx.z * KG;
   const int gn = min(KG, G - g0);
@@ -255,7 +266,7 @@ __global__ void __launch_bounds__(512, 2) tick_scatter_rows_kernel(
 #pragma unroll
     for (int j = 0; j < KG; ++j)
       if (j < gn)
-        partial[((size_t)blockIdx.x * G + g0 + j) * D + c0 + c] = acc[k][j];
+        partial[((size_t)blockIdx.y * G + g0 + j) * D + c0 + c] = acc[k][j];
   }
 }
 
@@ -283,7 +294,7 @@ int launch_scatter(const float* sent, const float* w, const float* U,
                     reinterpret_cast<uintptr_t>(U) % 16 == a &&
                     reinterpret_cast<uintptr_t>(w_out) % 16 == a &&
                     reinterpret_cast<uintptr_t>(u_out) % 16 == a;
-    const dim3 grid(part.blocks, sl.count, G > KG ? (G + KG - 1) / KG : 1);
+    const dim3 grid(sl.count, part.blocks, G > KG ? (G + KG - 1) / KG : 1);
     tick_scatter_rows_kernel<KG><<<grid, sl.threads, bytes, stream>>>(
         sent, w, U, wgt, done, eta, w_out, u_out, partial, C, D, G, sl.width,
         sl.ld, part.rows_per_block, dp_on, vec);
@@ -310,9 +321,11 @@ int tf_bucket_apply(const float* v, const float* rows, const float* dec,
 int tf_tick_deliver(const float* w, const float* U, const float* bc_v,
                     const int64_t* best, const bool* take, const float* eta,
                     float* out, int C, int D, cudaStream_t stream) {
-  if (C == 0) return 0;
-  tick_deliver_kernel<<<C, kThreads, 0, stream>>>(w, U, bc_v, best, take, eta,
-                                                  out, D);
+  if (C == 0 || D == 0) return 0;
+  const int nchunk = (D + kDeliverChunk - 1) / kDeliverChunk;
+  tick_deliver_kernel<<<(unsigned)((size_t)C * nchunk), kThreads, 0,
+                        stream>>>(w, U, bc_v, best, take, eta, out, D,
+                                  nchunk);
   return (int)cudaGetLastError();
 }
 

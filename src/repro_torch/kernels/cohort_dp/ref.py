@@ -46,13 +46,15 @@ def cohort_clip_noise_ref(u, noise, weights, mask, *, clip: float,
     return out, agg
 
 
-def counter_normals(key, C: int, D: int, device=None) -> torch.Tensor:
+def counter_normals(key, C: int, D: int, device=None, *,
+                    start: int = 0) -> torch.Tensor:
     """[C, D] standard normals of the in-kernel stream: threefry2x32 of
-    ``key`` on each element's flat index ``c * D + d`` (x0 -> b1, x1 ->
-    b2), then Box-Muller on the top 24 bits of each word, in f32:
-    ``u1 = (b1 >> 8) 2^-24 + 2^-25``, ``u2 = (b2 >> 8) 2^-24``,
-    ``n = sqrt(-2 log u1) cos(2 pi u2)``."""
-    b1, b2 = prng.counter_words(key, C * D, device=device)
+    ``key`` on each element's flat index ``start + c * D + d`` (x0 -> b1,
+    x1 -> b2; 64-bit, as the kernel's), then Box-Muller on the top 24
+    bits of each word, in f32: ``u1 = (b1 >> 8) 2^-24 + 2^-25``,
+    ``u2 = (b2 >> 8) 2^-24``, ``n = sqrt(-2 log u1) cos(2 pi u2)``.
+    ``start`` draws a piece of a larger block (a slab of one row)."""
+    b1, b2 = prng.counter_words(key, C * D, device=device, start=start)
     u1 = (b1 >> 8).to(torch.float32) * _TWO_M24 + _TWO_M25
     u2 = (b2 >> 8).to(torch.float32) * _TWO_M24
     n = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI_F32 * u2)

@@ -73,10 +73,15 @@ def ssd_chunk_outputs(xf, dtf, dA_cum, Cc, CB, prev):
     """Phase 4: y per chunk (b,nc,Q,h,p) f32: the causal products within
     the chunk plus the state before it read out through C."""
     Q = xf.shape[2]
-    # intra-chunk decay matrix L[i,j] = exp(dA_cum[i] - dA_cum[j]), j <= i
+    # intra-chunk decay matrix L[i,j] = exp(dA_cum[i] - dA_cum[j]), j <= i.
+    # The mask goes in before the exp (exp(-inf) = 0): above the diagonal
+    # seg > 0 and its exp overflows at mamba2-780m's width, and where()'s
+    # gradient would multiply that inf by 0 (NaN, the reference's
+    # ssm.py:85-87).  L's values are the same bits either way
     seg = dA_cum[:, :, :, None, :] - dA_cum[:, :, None, :, :]  # (b,nc,Q,Q,h)
     tril = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xf.device))
-    L = torch.where(tril[None, None, :, :, None], torch.exp(seg), 0.0)
+    L = torch.exp(torch.where(tril[None, None, :, :, None], seg,
+                              float("-inf")))
     scores = (CB[..., None] * L) * dtf[:, :, None, :, :]
     Y_diag = torch.einsum("bcijh,bcjhp->bcihp", scores, xf)
     Y_off = torch.einsum("bcin,bcih,bchnp->bcihp", Cc, torch.exp(dA_cum),

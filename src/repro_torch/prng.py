@@ -296,6 +296,22 @@ def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
     return out.reshape(tuple(batch) + tuple(shape))
 
 
+def permutation(key: torch.Tensor, n: int, device=None) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: ``arange(n)`` (int64) shuffled
+    by jax's sort-based method — ``ceil(3 log(max(1, n)) / log(2**32 -
+    1))`` rounds, each splitting the key (``key, sub = split(key)``) and
+    stably sorting the values by ``random_bits(sub, (n,))``, compared as
+    unsigned 32-bit keys.  ``key`` is one key on the CPU."""
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK32)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, (n,), device=device),
+                           stable=True).indices
+        x = x[order]
+    return x
+
+
 def split_batch(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.vmap(lambda k: jax.random.split(k, num))(keys)``: keys
     ``[N, 2]`` -> ``[N, num, 2]``."""

@@ -78,9 +78,13 @@ def test_per_example_grad_matches_jax_grad():
 
 
 def test_clip_tree_global_norm_over_w_and_b():
+    """``clip_tree(tree, clip)`` (the reference's signature): one global
+    norm over the ``w`` and ``b`` leaves of each gradient tree."""
     gw = torch.tensor([[3.0, 0.0], [0.3, 0.0]])
     gb = torch.tensor([4.0, 0.4])
-    cw, cb = clip_tree(gw, gb, 1.0)
+    rows = [clip_tree({"w": gw[i], "b": gb[i]}, 1.0) for i in range(2)]
+    cw = torch.stack([r["w"] for r in rows])
+    cb = torch.stack([r["b"] for r in rows])
     # row 0: norm 5 -> scaled to 1; row 1: norm 0.5 -> untouched
     np.testing.assert_allclose(cw.numpy(), [[0.6, 0.0], [0.3, 0.0]],
                                rtol=1e-6)

@@ -243,16 +243,42 @@ def test_params_from_jax_carries_the_init_model():
 
 
 def test_unported_options_raise_with_their_roadmap_item():
-    """What the port does not run yet names its ROADMAP item: the
-    model-scale task adapter (Queue 1 item 11), for every cohort engine."""
-    X, y = make_binary_dataset(50, 6, seed=0)
+    """The model-scale task adapter (ROADMAP Queue 1 item 11) is ported,
+    so nothing the cohort engines take still raises with a ROADMAP item:
+    a task without ``run_block`` that neither adapter takes raises the
+    reference's ``TypeError`` from ``as_cohort_task`` and from every
+    cohort engine, and a ``BatchModelTask`` adapts to
+    ``CohortBatchModelTask``."""
+    from repro.cohort import as_cohort_task as j_as_cohort_task
+    from repro_torch import prng
+    from repro_torch.cohort import CohortBatchModelTask, as_cohort_task
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import BatchModelTask
+    from repro_torch.data import SeedAddressedBatcher
+    from repro_torch.models import init_params
     kw = dict(n_clients=4, sizes_per_client=[2], round_stepsizes=[0.1],
               device="cpu")
+    with pytest.raises(TypeError) as jerr:
+        j_as_cohort_task(object(), 4)
+    msg = str(jerr.value)
+    assert msg.startswith("no cohort adapter for object")
+    with pytest.raises(TypeError) as err:
+        as_cohort_task(object(), 4, device="cpu")
+    assert str(err.value) == msg
     for engine in ("cohort", "device"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
+        with pytest.raises(TypeError, match="no cohort adapter for object"):
             make_simulator(engine, object(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
+    with pytest.raises(TypeError, match="no cohort adapter for object"):
         DeviceCohortSimulator(object(), **kw)
+    cfg = reduced(get_config("gemma-2b"), n_layers=1, d_model=32, vocab=64)
+    task = BatchModelTask(
+        cfg, init_params(cfg, prng.PRNGKey(0), torch.float32, device="cpu"),
+        SeedAddressedBatcher(cfg, batch_size=1, seq_len=8, device="cpu"))
+    ctask = as_cohort_task(task, 4, device="cpu")
+    assert isinstance(ctask, CohortBatchModelTask) and ctask.C == 4
+    assert as_cohort_task(ctask, 4) is ctask
+    sim = make_simulator("device", task, **kw)
+    assert isinstance(sim.ctask, CohortBatchModelTask)
 
 
 def test_engines_and_windows_of_items_6_and_9_build():
