@@ -91,14 +91,32 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    the peak memory; then rows 1-5 at that D against their plain versions
    slab by slab, each timed and bounded; (c) ``python -m
    repro_torch.launch.train`` at full width with a checkpoint that loads
-   back through ``load_fl_state``, and reduced with DP.
+   back through ``load_fl_state``, and reduced with DP;
+14. ``trace``: (a) the main run with ``trace=`` a JSONL file, once per
+   noise source (rows 1-5 launched), each run's records and wall spans
+   made one Perfetto document as ``python -m repro_torch.telemetry``
+   makes it, with zero findings from ``validate_trace_events``,
+   ``check_perfetto``, ``check_trace`` (d = 2) and ``check_report``;
+   (b) a regression planted in a copy of each run's records (the last
+   segment's ``messages`` and ``staleness_hist[0]`` below the previous
+   segment's) that the checker must report as INV-MONO (and INV-LATCH
+   where the overflow mark was above 0); (c) the event simulator at
+   phase 11's C = 64, traced, clean at its d; (d) ``python -m
+   repro_torch.telemetry capture`` (device engine, ``mobile_diurnal``,
+   DP) and ``convert``, and ``python -m repro_torch.analysis
+   src/repro_torch``, as users start them (exit 0, valid output); (e) a
+   main run with its spans annotated under ``torch.profiler`` (CPU and
+   CUDA activities): every span name among the profiler's events, and
+   the CUDA time the profiler puts inside them; (f) the main run's wall
+   with and without ``trace=`` (3 each after a warm-up, medians), and
+   the time of the report record's emit alone.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (launches from the path that runs each kernel most: the tick kernels'
 from the scenario runs, with the main run's and the host engine's beside
 them; attention and the SSD from phase 12, the one-layer phases' beside
-them; rows 1-5 also with phase 13's launches and time at model D), and,
-last,
+them; rows 1-5 also with phase 13's launches and time at model D and
+phase 14's traced main runs' launches), and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line; so does a machine without CUDA.
 """
@@ -727,15 +745,16 @@ def phase_kernels(dev, logs):
 
 def make_sim(dev, X, y, *, C, sizes, etas, d, seed, block, l2,
              dp_clip=0.0, dp_sigma=0.0, dp_round_clip=0.0, sample_seed=0,
-             scenario=None, strategy=None, dp_rng="operand", host=False):
+             scenario=None, strategy=None, dp_rng="operand", host=False,
+             trace=None):
     """The device engine, or with ``host`` the host-loop engine (operand
-    noise only)."""
+    noise only); ``trace`` is the engines' JSONL ``trace=``."""
     import repro_torch as rt
     task = rt.LogRegTask(X, y, l2=l2, dp_clip=dp_clip, dp_sigma=dp_sigma,
                          sample_seed=sample_seed)
     kw = dict(n_clients=C, sizes_per_client=sizes, round_stepsizes=etas,
               d=d, seed=seed, block=block, dp_round_clip=dp_round_clip,
-              scenario=scenario, strategy=strategy, device=dev)
+              scenario=scenario, strategy=strategy, device=dev, trace=trace)
     if host:
         return rt.CohortSimulator(task, **kw)
     return rt.DeviceCohortSimulator(task, dp_rng=dp_rng, **kw)
@@ -1217,14 +1236,10 @@ EVENT = dict(C=64, sizes=[10, 20, 30, 40], etas=[0.1, 0.08, 0.06, 0.05],
 EVENT_ATOL = 1e-4
 
 
-def phase_event(dev, X, y):
-    """Phase 11: the event simulator on the card against both cohort
-    engines on the card (three-way parity at d = 1) and against its own
-    CPU run."""
+def event_setup(X, y):
+    """The event phase's task and simulator keywords (``EVENT``)."""
     import numpy as np
-    import torch
     import repro_torch as rt
-
     e = EVENT
     C = e["C"]
     kw = dict(n_clients=C, sizes_per_client=[e["sizes"]] * C,
@@ -1232,6 +1247,19 @@ def phase_event(dev, X, y):
               speeds=list(np.tile(e["speeds"], C // len(e["speeds"]))))
     task = rt.LogRegTask(X, y, l2=1.0 / X.shape[0],
                          sample_seed=e["sample_seed"])
+    return task, kw
+
+
+def phase_event(dev, X, y):
+    """Phase 11: the event simulator on the card against both cohort
+    engines on the card (three-way parity at d = 1) and against its own
+    CPU run."""
+    import torch
+    import repro_torch as rt
+
+    e = EVENT
+    C = e["C"]
+    task, kw = event_setup(X, y)
     out = {}
     for name, cls, where in (("event", rt.AsyncFLSimulator, dev),
                              ("host", rt.CohortSimulator, dev),
@@ -2694,6 +2722,264 @@ def phase_model_train(dev):
           f"driver_walls_s={c}")
     return a, b
 
+# phase 14: the main run traced (the JSONL ``trace=`` and the engine's
+# wall spans), its Perfetto timelines and the trace checks, under the
+# profiler, and the cost of tracing
+TRACE_DIR = os.path.join(HERE, "build", "trace")
+TRACE_COST_REPS = 3
+
+
+def trace_violations(what: str, records, doc, d: int) -> None:
+    """Fail unless one run's records and timeline pass every check: the
+    document's schema and tracks, INV-SPAN over it, the INV-* rules of
+    the JSONL at ``d`` and the report's own census."""
+    from repro_torch.analysis.invariants import (check_perfetto,
+                                                 check_report, check_trace)
+    from repro_torch.telemetry import validate_trace_events
+    reports = [(i, r) for i, r in enumerate(records, 1)
+               if r["kind"] == "report"]
+    if len(reports) != 1:
+        fail(f"phase trace: {what}: {len(reports)} report records")
+    checks = (("validate_trace_events", validate_trace_events(doc)),
+              ("check_perfetto", check_perfetto(doc)),
+              ("check_trace", check_trace(records, d=d)),
+              ("check_report", check_report(reports[0][1], d=d,
+                                            line=reports[0][0])))
+    for name, found in checks:
+        if found:
+            fail(f"phase trace: {what}: {name} found {len(found)}: "
+                 f"{found[:5]}")
+
+
+def traced_main(dev, X, y, kw, dp_rng: str, path=None):
+    """One main run (phase 3's configuration), with ``trace=path``."""
+    m = MAIN
+    sim = make_sim(dev, X, y, block=m["block"], dp_rng=dp_rng, trace=path,
+                   **kw)
+    res, wall = timed_run(sim, m["rounds"], m["rounds"] // 2)
+    if res["final"]["round"] < m["rounds"]:
+        fail(f"phase trace: main run ({dp_rng}) reached round "
+             f"{res['final']['round']}")
+    return sim, res, wall
+
+
+def plant_regression(records, d: int) -> list:
+    """Phase 14 (b): the last segment's ``messages`` and
+    ``staleness_hist[0]`` (and its ``overflow_hwm`` where the previous
+    mark is above 0) set below the previous segment's; returns the
+    rules the checker reports, failing unless INV-MONO (and INV-LATCH
+    where planted) are among them."""
+    import copy
+    from repro_torch.analysis.invariants import check_trace
+    recs = copy.deepcopy(records)
+    segs = [r for r in recs if r["kind"] == "segment"]
+    prev, last = segs[-2], segs[-1]
+    last["messages"] = prev["messages"] - 1
+    last["staleness_hist"][0] = prev["staleness_hist"][0] - 1
+    want = {"INV-MONO"}
+    if prev["overflow_hwm"] > 0:
+        last["overflow_hwm"] = prev["overflow_hwm"] - 1
+        want.add("INV-LATCH")
+    rules = sorted({v.rule for v in check_trace(recs, d=d)})
+    if not want <= set(rules):
+        fail(f"phase trace: (b) the planted regression gave {rules}, "
+             f"want {sorted(want)}")
+    return rules
+
+
+def profiled_main(dev, X, y, kw):
+    """Phase 14 (e): one main run (operand noise) with its spans
+    annotated (``SpanRecorder(annotate=True)``) under ``torch.profiler``
+    with CPU and CUDA activities; every span name must be among the
+    profiler's events.  Returns the spans, the CUDA time the profiler
+    puts inside each span name, the device events' time (kernels and
+    copies apart from the spans' own device ranges) and the keys with
+    the most self CUDA time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.cohort import device as device_mod
+    from repro_torch.telemetry import SpanRecorder
+
+    inner = device_mod.PhaseTimer
+    device_mod.PhaseTimer = lambda: SpanRecorder(annotate=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sim, res, wall = traced_main(dev, X, y, kw, "operand")
+            torch.cuda.synchronize(dev)
+    finally:
+        device_mod.PhaseTimer = inner
+    spans = sim.engine.timer.counts
+    names = {e.name for e in prof.events()}
+    missing = sorted(set(spans) - names)
+    if missing:
+        fail(f"phase trace: (e) spans {missing} are not among the "
+             f"profiler's events")
+    avg = prof.key_averages()
+
+    def device_us(e, attr):
+        return getattr(e, attr, getattr(e, attr.replace("device",
+                                                        "cuda"), 0))
+
+    inside = {e.key: device_us(e, "device_time_total") / 1e3
+              for e in avg if e.key in spans}
+    # the device events themselves: kernels and copies, and the spans'
+    # own ranges on the device timeline (annotations), apart
+    on_dev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = sum(e.time_range.elapsed_us() for e in on_dev
+                  if e.name not in spans) / 1e3
+    annotations = sum(e.time_range.elapsed_us() for e in on_dev
+                      if e.name in spans) / 1e3
+    top = sorted(avg, key=lambda e: -device_us(e, "self_device_time_total"))
+    top = {e.key[:40]: device_us(e, "self_device_time_total") / 1e3
+           for e in top[:6]}
+    return dict(spans=dict(spans), span_cuda_ms=inside,
+                kernels_ms=kernels, annotations_ms=annotations,
+                top_self_cuda_ms=top, wall_s=wall, report=res["telemetry"])
+
+
+def phase_trace(dev, X, y, kw, smi: str) -> dict:
+    """Phase 14: (a) the main run traced once per noise source, each
+    run's JSONL and wall spans made one Perfetto document by the CLI's
+    own ``timeline``, every check clean (rows 1-5 launched: counts
+    zeroed before, read after); (b) a planted regression the checker
+    must catch; (c) the event simulator at C 64 traced, clean at its d;
+    (d) ``python -m repro_torch.telemetry capture | convert`` and
+    ``python -m repro_torch.analysis src/repro_torch`` as users start
+    them; (e) the annotated spans under ``torch.profiler``; (f) the main
+    run's wall with and without ``trace=``.  Returns (a)'s launches."""
+    import gc
+    import io
+    import json
+    import repro_torch as rt
+    from repro_torch.analysis.invariants import check_trace, read_trace
+    from repro_torch.kernels import launches
+    from repro_torch.telemetry import (JsonlTraceWriter,
+                                       validate_trace_events, write_perfetto)
+    from repro_torch.telemetry.__main__ import timeline
+
+    m = MAIN
+    d = m["d_gate"]
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    # (a)
+    runs = {}
+    launches.reset()
+    for dp_rng in ("operand", "in_kernel"):
+        path = os.path.join(TRACE_DIR, f"main_{dp_rng}.jsonl")
+        sim, res, wall = traced_main(dev, X, y, kw, dp_rng, path)
+        records = read_trace(path)
+        doc = timeline(records, sim.engine.timer)
+        write_perfetto(os.path.join(TRACE_DIR, f"main_{dp_rng}.json"), doc)
+        trace_violations(f"main ({dp_rng})", records, doc, d)
+        segs = [r for r in records if r["kind"] == "segment"]
+        if len(segs) != m["rounds"] // (m["rounds"] // 2):
+            fail(f"phase trace: main ({dp_rng}) wrote {len(segs)} "
+                 f"segments")
+        runs[dp_rng] = records
+        print(f"phase trace: (a) main ({dp_rng}) C={m['C']} D={m['d'] + 1} "
+              f"rounds={m['rounds']} records={len(records)} "
+              f"segments={len(segs)} events={len(doc['traceEvents'])} "
+              f"wall_spans={len(sim.engine.timer.spans)} violations=0 "
+              f"messages={res['telemetry'].messages} wall_s={wall}")
+    counts = dict(launches.LAUNCHES)
+    for name in TRAIN_PATH:
+        if counts[name] <= 0:
+            fail(f"phase trace: {name} was not launched on the traced "
+                 f"main runs")
+    print(f"phase trace: (a) launches={counts}")
+    # (b)
+    for dp_rng, records in runs.items():
+        print(f"phase trace: (b) planted regression in main ({dp_rng}): "
+              f"caught {plant_regression(records, d)}")
+    # (c)
+    e = EVENT
+    task, ekw = event_setup(X, y)
+    path = os.path.join(TRACE_DIR, "event.jsonl")
+    sim = rt.AsyncFLSimulator(task, **ekw, trace=path, device=dev)
+    res, wall = timed_run(sim, e["rounds"], 1)
+    records = read_trace(path)
+    kinds = {}
+    for r in records:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    if kinds.get("update_applied", 0) < e["C"] * e["rounds"]:
+        fail(f"phase trace: (c) event trace records {kinds}")
+    doc = timeline(records, sim.timer)
+    trace_violations("event", records, doc, ekw["d"])
+    print(f"phase trace: (c) event C={e['C']} d={ekw['d']} "
+          f"rounds={e['rounds']} records={len(records)} kinds={kinds} "
+          f"events={len(doc['traceEvents'])} violations=0 wall_s={wall}")
+    # (d)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    out, jl, conv = (os.path.join(TRACE_DIR, f) for f in
+                     ("cli.json", "cli.jsonl", "cli_converted.json"))
+    for what, args in (
+            ("telemetry capture", ["repro_torch.telemetry", "capture",
+                                   "--out", out, "--engine", "device",
+                                   "--scenario", "mobile_diurnal", "--dp",
+                                   "--jsonl-out", jl]),
+            ("telemetry convert", ["repro_torch.telemetry", "convert", jl,
+                                   "--out", conv]),
+            ("analysis", ["repro_torch.analysis",
+                          os.path.join("src", "repro_torch")])):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m"] + args, cwd=HERE,
+                           env=env, capture_output=True, text=True,
+                           timeout=300)
+        if r.returncode:
+            fail(f"phase trace: python -m {' '.join(args)} exited "
+                 f"{r.returncode}: {r.stdout[-1000:]} {r.stderr[-2000:]}")
+        print(f"phase trace: (d) python -m repro_torch.{what}: exit 0 in "
+              f"{time.perf_counter() - t0} s: "
+              + " | ".join(r.stdout.strip().splitlines()[-2:]))
+    for p in (out, conv):
+        with open(p) as fh:
+            doc = json.load(fh)
+        found = validate_trace_events(doc)
+        if found or not doc["traceEvents"]:
+            fail(f"phase trace: (d) {p}: {found[:5]}")
+    found = check_trace(read_trace(jl), d=2)       # capture's default d
+    if found:
+        fail(f"phase trace: (d) the captured trace: {found[:5]}")
+    # (e)
+    prof = profiled_main(dev, X, y, kw)
+    shown = (f"span_cuda_ms={prof['span_cuda_ms']}"
+             if any(prof["span_cuda_ms"].values())
+             else "the profiler attributes no CUDA time to the spans")
+    rep = prof["report"]
+    print(f"phase trace: (e) spans={prof['spans']} all among the "
+          f"profiler's events; {shown}; device events: kernels and "
+          f"copies ms={prof['kernels_ms']}, span ranges ms="
+          f"{prof['annotations_ms']}; top self CUDA ms="
+          f"{prof['top_self_cuda_ms']}; wall_s={prof['wall_s']}")
+    # (f), after collecting (e)'s profiler events: a collection during a
+    # timed run would land on whichever run allocates most
+    del prof["report"]
+    gc.collect()
+    traced_main(dev, X, y, kw, "operand")                     # warm-up
+    walls = {"off": [], "on": []}
+    for _ in range(TRACE_COST_REPS):
+        for mode in ("off", "on"):
+            path = (os.path.join(TRACE_DIR, "cost.jsonl") if mode == "on"
+                    else None)
+            walls[mode].append(traced_main(dev, X, y, kw, "operand",
+                                           path)[2])
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    # the report record alone: its emit is host work on a row per client
+    emits = []
+    for _ in range(TRACE_COST_REPS):
+        t0 = time.perf_counter()
+        JsonlTraceWriter(io.StringIO()).emit("report", **rep.to_dict())
+        emits.append(time.perf_counter() - t0)
+    print(f"phase trace: (f) {smi}: main run (operand) wall_s without "
+          f"trace={walls['off']} median={med['off']}; with trace="
+          f"{walls['on']} median={med['on']}; tracing costs "
+          f"{med['on'] - med['off']} s "
+          f"({100 * (med['on'] / med['off'] - 1)}%); the report record's "
+          f"emit ({len(rep.dp or [])} DP rows) "
+          f"s={emits} median={statistics.median(emits)}")
+    return counts
+
 
 def main() -> int:
     import torch
@@ -2780,6 +3066,9 @@ def main() -> int:
             fail(f"phase model_train: {name} was not launched at model D")
     print(f"phase model_train: wall_s={time.perf_counter() - t0} "
           f"launches={train_counts} step={train_step}")
+    t0 = time.perf_counter()
+    trace_counts = phase_trace(dev, X, y, kw, smi)
+    print(f"phase trace: wall_s={time.perf_counter() - t0}")
     # launches: each kernel's count from the path that runs it most: the
     # scenario runs (in-kernel noise) for the tick kernels, each on every
     # tick or completion tick there (the main run's count and the host
@@ -2808,6 +3097,7 @@ def main() -> int:
             k["launches_model_host"] = train_counts["host"].get(k["name"],
                                                                 0)
             k.update(train["kernels"][k["name"]])
+            k["launches_trace"] = trace_counts[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # then each kernel's own extra keys (other shapes and dtypes, the

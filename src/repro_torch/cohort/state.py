@@ -205,6 +205,18 @@ class UpdateBuckets:
     far_contrib: Dict[int, Any] = field(default_factory=dict)
     meta: Dict[int, List[Tuple[int, int, int]]] = field(default_factory=dict)
 
+    def add(self, tick: int, vec, pairs: List[Tuple[int, int, int]],
+            far: bool = False) -> None:
+        """Sum ``vec`` into the payload at ``tick`` and append its
+        (round, client, k_send) triples: round/client feed Algorithm 3's
+        H set, k_send the staleness-at-apply census."""
+        bucket = self.far_contrib if far else self.contrib
+        if tick in bucket:
+            bucket[tick] = bucket[tick] + vec
+        else:
+            bucket[tick] = vec
+        self.meta.setdefault(tick, []).extend(pairs)
+
     def get(self, tick: int, far: bool = False):
         """Current payload at ``tick`` (None when empty)."""
         return (self.far_contrib if far else self.contrib).get(tick)

@@ -11,13 +11,13 @@ from repro_torch.scenarios.registry import (Scenario, ScenarioPlan,
                                             scenario_from_trace,
                                             scenario_names, scenario_plan)
 from repro_torch.scenarios.tables import (LatencyTable, alias_sample,
-                                          alias_sample_rows, key_uniforms,
-                                          vose_alias)
+                                          alias_sample_rows, implied_probs,
+                                          key_uniforms, vose_alias)
 
 __all__ = ["AlwaysOn", "Churn", "Diurnal", "LatencyTable", "RegionalChurn",
            "RenewalChurn", "Scenario", "ScenarioPlan", "SpeedModel",
            "TableAssignment", "alias_sample", "alias_sample_rows",
-           "draw_table_ids", "get_scenario", "key_uniforms",
+           "draw_table_ids", "get_scenario", "implied_probs", "key_uniforms",
            "legacy_latency_scenario", "register_scenario",
            "scenario_from_trace", "scenario_names", "scenario_plan",
            "vose_alias"]

@@ -54,6 +54,7 @@ class _EpochCache:
 class AlwaysOn:
     """Full availability — the default regime."""
     duty: float = 1.0
+    event_supported: bool = True
 
     def tick_plan(self, C: int, dt: float, seed: int, device=None) -> None:
         return None
@@ -99,6 +100,7 @@ class Diurnal:
     uniformly from the engine seed."""
     period_s: float = 512.0
     on_frac: float = 0.75
+    event_supported: bool = True
 
     def __post_init__(self):
         if self.period_s <= 0.0 or not 0.0 < self.on_frac <= 1.0:
@@ -142,6 +144,7 @@ class Churn:
     AVAIL_SALT), epoch)``, a pure function of (epoch, client)."""
     p_available: float = 0.9
     epoch_s: float = 64.0
+    event_supported: bool = False
 
     def __post_init__(self):
         if not 0.0 < self.p_available <= 1.0 or self.epoch_s <= 0.0:
@@ -182,6 +185,7 @@ class RegionalChurn:
     p_region_up: float = 0.95
     epoch_s: float = 64.0
     region_of: Optional[tuple] = None
+    event_supported: bool = False
 
     def __post_init__(self):
         if self.n_regions < 1:
@@ -383,6 +387,7 @@ class RenewalChurn:
     off_rate: float = 1.0 / 48.0
     epoch_cycles: float = 4.0
     n_draws: int = 24
+    event_supported: bool = True
 
     def __post_init__(self):
         if self.on_rate <= 0.0 or self.off_rate <= 0.0:

@@ -231,6 +231,12 @@ class ScenarioPlan:
                                             device=device)
         self._avail_last: Tuple[Optional[torch.Tensor], Any] = (None, None)
 
+    def fingerprint(self):
+        """Hashable identity for caches keyed on the plan: the plan is a
+        pure function of (scenario, C, dt, seed), and the caller's cache
+        key already carries C and seed."""
+        return (self.scenario, self.dt)
+
     # -- tick-quantized draws ---------------------------------------------
     def _draw_bins(self, keys: torch.Tensor) -> torch.Tensor:
         """Per-client alias draw: the bin of each client's table row."""
@@ -246,8 +252,8 @@ class ScenarioPlan:
         ([C] int tensor on the plan's device -> [C] int32, each >= 1)."""
         if self._ticks_const:
             return self._tick0_c
-        return self._draw_ticks(prng.fold_in(self._upd_client_keys,
-                                             i.to(torch.int64)))
+        i = i.to(torch.int64)
+        return self._draw_ticks(prng.fold_in(self._upd_client_keys, i))
 
     def broadcast_ticks(self, k: int) -> torch.Tensor:
         """Per-client arrival-tick offsets of broadcast ``k`` (a host int)
@@ -314,7 +320,8 @@ class ScenarioPlan:
         and bins of ``broadcast_ticks``."""
         if self._const_s:
             return self._const_vals_s.copy()
-        bk = prng.fold_in(self._bc_base, int(k)).to(self.device)
+        k = int(k)
+        bk = prng.fold_in(self._bc_base, k).to(self.device)
         return self._gather_s(prng.fold_in(bk[None, :], self._cidx))
 
     def _gather_s(self, keys: torch.Tensor) -> np.ndarray:

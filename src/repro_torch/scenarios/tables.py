@@ -226,12 +226,32 @@ class LatencyTable:
         return tuple(cls.from_samples(groups[k], n_bins=n_bins)
                      for k in sorted(groups, key=order))
 
+    # -- stats -------------------------------------------------------------
+    def mean(self) -> float:
+        return sum(v * p for v, p in zip(self.values, self.probs))
+
+    def quantile(self, q: float) -> float:
+        acc = 0.0
+        for v, p in zip(self.values, self.probs):
+            acc += p
+            if acc >= q:
+                return v
+        return self.values[-1]
+
+    @property
+    def max_s(self) -> float:
+        return self.values[-1]
+
     # -- engine-facing views ----------------------------------------------
     def tick_values(self, dt: float) -> np.ndarray:
         """Bin values quantized to arrival-tick offsets, ``max(1,
         ceil(s / dt))``."""
         v = np.asarray(self.values, np.float64)
         return np.maximum(1, np.ceil(v / dt)).astype(np.int32)
+
+    def alias_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Vose alias decomposition -> (prob f32 [K], alias i32 [K])."""
+        return vose_alias(self.probs)
 
     def padded(self, K: int) -> Tuple[np.ndarray, np.ndarray]:
         """(values f64 [K], probs f64 [K]) padded to K bins with
@@ -291,3 +311,12 @@ def alias_sample_rows(u: torch.Tensor, prob: torch.Tensor,
     a0 = torch.gather(alias, -1, j0[..., None])[..., 0]
     return torch.where(u[..., 1] < p0, j0, a0.long())
 
+
+def implied_probs(prob: np.ndarray, alias: np.ndarray) -> np.ndarray:
+    """Probability of each bin under exact alias sampling:
+    ``implied_probs(*t.alias_arrays()) == t.probs``."""
+    K = len(prob)
+    out = np.asarray(prob, np.float64).copy()
+    for i in range(K):
+        out[alias[i]] += 1.0 - prob[i]
+    return out / K

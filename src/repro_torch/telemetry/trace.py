@@ -16,19 +16,27 @@ import json
 from typing import Any, Dict, IO, Optional, Union
 
 import numpy as np
+import torch
+
+
+_PLAIN = (int, float, str, bool, type(None))
 
 
 def _coerce(obj: Any) -> Any:
-    if isinstance(obj, np.ndarray):
-        return [_coerce(x) for x in obj]
-    if isinstance(obj, np.integer):
-        return int(obj)
-    if isinstance(obj, np.floating):
-        return float(obj)
+    """Plain JSON values: tensors (0-d ones too) and numpy arrays and
+    scalars become Python numbers and lists.  Plain values return first:
+    a report record carries a row per client, and ``isinstance`` against
+    ``torch.Tensor`` is slow."""
+    if type(obj) in _PLAIN:
+        return obj
     if isinstance(obj, dict):
         return {k: _coerce(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
         return [_coerce(x) for x in obj]
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
+        return obj.tolist()
+    if isinstance(obj, np.generic):
+        return obj.item()
     return obj
 
 
