@@ -109,7 +109,25 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    CUDA activities): every span name among the profiler's events, and
    the CUDA time the profiler puts inside them; (f) the main run's wall
    with and without ``trace=`` (3 each after a warm-up, medians), and
-   the time of the report record's emit alone.
+   the time of the report record's emit alone;
+15. ``dryrun``: (a) ``python -m repro_torch.launch.dryrun`` for gemma2-2b
+   and mamba2-780m over the four input shapes on both fake production
+   meshes (16 processes, 8 at once): exit 0, no FAIL row, SKIP only where
+   ``shape_is_applicable`` skips, every field of the reference's rows,
+   ``corrected_costs`` equal to the full-depth count; then ``python -m
+   repro_torch.launch.report``; (b) the dry run's accounting against the
+   card at full width and 2 layers (``DRYRUN_CHECK``): each step traced on
+   a fake one-rank mesh and run for real on a one-rank NCCL mesh, argument
+   bytes and flops (``FlopCounterMode``) equal, no collective in either,
+   the predicted peak within ``DRYRUN_PEAK_RTOL`` of
+   ``max_memory_allocated`` above the arguments, the wall at least
+   ``DRYRUN_WALL_FLOOR`` of the roofline's bound; (c) the kernels' custom
+   ops bit for bit the launchers at phase 12's shapes, their fake
+   implementations' shape, dtype and stride the real outputs'; (d) STRUCT-*
+   on a device state on the card (no finding), and planted spec faults
+   read as STRUCT-PSPEC and STRUCT-STALE.  Prints its own kernels line
+   (``{"phase": "dryrun", "kernels": [...]}``: rows 7 and 8 through their
+   custom ops, launches from (b)'s real runs).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (launches from the path that runs each kernel most: the tick kernels'
@@ -467,11 +485,16 @@ def phase_kernels(dev, logs):
     # one PyTorch call computing v - rows^T dec (the flag on)
     lms = median_ms(lambda: torch.addmv(v, rows.T, dec, alpha=-1))
     bms, by = bound(f4 * (3 * D + 1) + 4, 2 * D)
+    # the launch floor: an empty kernel (a zero-cycle spin) in the same
+    # graph of 10 calls, so a row near it reads as launch-bound
+    floor_ms = median_ms(lambda: torch.cuda._sleep(0))
+    print(f"phase kernels: launch floor (empty kernel, 10-call graph) "
+          f"ms={floor_ms}; bucket_apply ms={ms}")
     out.append(dict(name="bucket_apply", route="cuda",
                     source="src/repro_torch/csrc/tick_fused.cu",
                     replaces="src/repro/kernels/tick_fused/kernel.py:78",
                     max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                    bound_by=by, library_ms=lms))
+                    bound_by=by, library_ms=lms, launch_floor_ms=floor_ms))
 
     # -- tick_deliver ------------------------------------------------------
     w, U, bc_v = randn(C, D), randn(C, D), randn(B, D)
@@ -2981,6 +3004,417 @@ def phase_trace(dev, X, y, kw, smi: str) -> dict:
     return counts
 
 
+# phase 15, the dry run: the CLI as users start it (both archs over the
+# four shapes on both fake production meshes, in four processes), then
+# the dry run's accounting held against the card on a one-rank mesh at
+# full width and a cut depth (2 layers: one local/global period), each
+# case's step run for real through the kernels' custom ops
+DRYRUN_ARCHS = ("gemma2-2b", "mamba2-780m")
+DRYRUN_LAYERS = 2
+DRYRUN_CHECK = (dict(arch="gemma2-2b", kind="prefill", B=1, S=32768),
+                dict(arch="gemma2-2b", kind="train", B=1, S=4096),
+                dict(arch="gemma2-2b", kind="decode", B=4, S=32768),
+                dict(arch="mamba2-780m", kind="prefill", B=1, S=32768),
+                dict(arch="mamba2-780m", kind="train", B=1, S=4096))
+# the predicted live-storage peak against max_memory_allocated above the
+# arguments, and the floor of the measured wall under the roofline bound
+DRYRUN_PEAK_RTOL = 0.25
+DRYRUN_WALL_FLOOR = 0.95
+DRYRUN_DIR = os.path.join(HERE, "build", "dryrun")
+# CLI processes at once in (a): the card's machine has 8 cores
+DRYRUN_PROCS = 8
+# every field of the reference's result rows (repro/launch/dryrun.py,
+# roofline.RooflineReport.to_dict)
+DRYRUN_FIELDS = {
+    "": ("arch", "shape", "mesh", "status", "roofline", "memory_analysis"),
+    "roofline": ("arch", "shape", "mesh", "chips", "hlo_flops", "hlo_bytes",
+                 "coll_bytes", "coll_breakdown", "model_flops_total",
+                 "bytes_per_device", "compile_seconds", "compute_s",
+                 "memory_s", "collective_s", "dominant", "useful_ratio"),
+    "memory_analysis": ("temp_size_in_bytes", "argument_size_in_bytes",
+                        "output_size_in_bytes",
+                        "generated_code_size_in_bytes")}
+
+
+def dryrun_cli(env) -> list:
+    """(a): ``python -m repro_torch.launch.dryrun`` for each arch, input
+    shape and production mesh (16 processes, ``DRYRUN_PROCS`` at once),
+    then ``python -m repro_torch.launch.report`` over their rows;
+    returns the rows."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch.inputs import shape_is_applicable
+    os.makedirs(DRYRUN_DIR, exist_ok=True)
+    todo = []
+    for arch in DRYRUN_ARCHS:
+        for shape in INPUT_SHAPES:
+            for mp in (False, True):
+                out = os.path.join(DRYRUN_DIR, f"{arch}_{shape}"
+                                   f"{'_mp' if mp else ''}.json")
+                if os.path.exists(out):
+                    os.remove(out)
+                todo.append((["--arch", arch, "--shape", shape, "--out",
+                              out] + (["--multi-pod"] if mp else []), out))
+    # the train steps first: they take longest
+    todo.sort(key=lambda t: "train_4k" not in t[0])
+    t0 = time.perf_counter()
+    running, done = [], []
+    while todo or running:
+        while todo and len(running) < DRYRUN_PROCS:
+            args, out = todo.pop(0)
+            log = open(out + ".log", "w")
+            running.append((args, out, log, time.perf_counter(),
+                            subprocess.Popen(
+                                [sys.executable, "-m",
+                                 "repro_torch.launch.dryrun"] + args,
+                                cwd=HERE, env=env, stdout=log,
+                                stderr=subprocess.STDOUT)))
+        time.sleep(0.2)
+        for job in list(running):
+            args, out, log, start, proc = job
+            if proc.poll() is None:
+                if time.perf_counter() - start > 600:
+                    for *_, p in running:
+                        p.kill()
+                    fail(f"phase dryrun: dryrun {' '.join(args)} ran "
+                         f"past 600 s")
+                continue
+            running.remove(job)
+            log.close()
+            with open(out + ".log") as f:
+                text = f.read()
+            print("\n".join(line for line in text.splitlines()
+                            if not line.startswith("[")))
+            if proc.returncode != 0:
+                print(text[-4000:], file=sys.stderr)
+                fail(f"phase dryrun: dryrun {' '.join(args)} exited "
+                     f"{proc.returncode}")
+            done.append(out)
+    rows = []
+    for out in done:
+        with open(out) as f:
+            rows += json.load(f)
+    print(f"phase dryrun: cli wall_s={time.perf_counter() - t0} "
+          f"({len(done)} processes, {DRYRUN_PROCS} at once)")
+    for r in rows:
+        cfg = get_config(r["arch"])
+        ok, _ = shape_is_applicable(cfg, r["shape"])
+        if r["status"] == "FAIL":
+            fail(f"phase dryrun: FAIL row {r['arch']} {r['shape']} "
+                 f"{r['mesh']}: {r.get('error', '')[:400]}")
+        if (r["status"] == "SKIP") != (not ok):
+            fail(f"phase dryrun: {r['arch']} {r['shape']} {r['mesh']} is "
+                 f"{r['status']}, applicable={ok}")
+        if r["status"] != "OK":
+            continue
+        for sect, keys in DRYRUN_FIELDS.items():
+            have = r if not sect else r[sect]
+            missing = [k for k in keys if k not in have]
+            if missing:
+                fail(f"phase dryrun: {r['arch']} {r['shape']} {r['mesh']} "
+                     f"lacks {sect or 'row'} fields {missing}")
+        rf, ma = r["roofline"], r["memory_analysis"]
+        cc = r.get("corrected_costs")
+        print(f"phase dryrun: {r['arch']} {r['shape']} {r['mesh']} "
+              f"flops={rf['hlo_flops']} bytes={rf['hlo_bytes']} "
+              f"coll_bytes={rf['coll_bytes']} compute_s={rf['compute_s']} "
+              f"memory_s={rf['memory_s']} collective_s={rf['collective_s']} "
+              f"dominant={rf['dominant']} useful={rf['useful_ratio']} "
+              f"args_bytes={ma['argument_size_in_bytes']} "
+              f"temp_bytes={ma['temp_size_in_bytes']} "
+              f"trace_s={rf['compile_seconds']} corrected_costs={cc} "
+              f"fallbacks={r.get('fallbacks')}")
+        if cc is not None and not cc["equal"]:
+            fail(f"phase dryrun: {r['arch']} {r['shape']}: corrected_costs "
+                 f"differ from the full-depth count: {cc}")
+    want = {(a, s) for a in DRYRUN_ARCHS for s in INPUT_SHAPES}
+    for mesh in ("16x16", "2x16x16"):
+        got = {(r["arch"], r["shape"]) for r in rows if r["mesh"] == mesh}
+        if got != want:
+            fail(f"phase dryrun: {mesh} rows {sorted(got)}, want "
+                 f"{sorted(want)}")
+    merged = os.path.join(DRYRUN_DIR, "dryrun_torch.json")
+    with open(merged, "w") as f:
+        json.dump(rows, f, indent=1)
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.report",
+                        merged], cwd=HERE, env=env, capture_output=True,
+                       text=True, timeout=120)
+    if r.returncode != 0 or "H100 constants" not in r.stdout:
+        print(r.stderr[-4000:], file=sys.stderr)
+        fail(f"phase dryrun: report exited {r.returncode}")
+    print(r.stdout.rstrip())
+    return rows
+
+
+def dryrun_case(case):
+    """(cfg, RunConfig, ShapeConfig) of one (b) case: full width,
+    ``DRYRUN_LAYERS`` deep."""
+    from repro_torch.configs import RunConfig, ShapeConfig, get_config
+    from repro_torch.launch.dryrun import analysis_variant
+    cfg = analysis_variant(get_config(case["arch"]), DRYRUN_LAYERS)
+    shape = ShapeConfig(f"{case['kind']}_{case['S']}", case["S"], case["B"],
+                        case["kind"])
+    return cfg, RunConfig(model=cfg, shape=shape.name), shape
+
+
+def dryrun_real(case) -> dict:
+    """One (b) case run for real on a one-rank NCCL mesh: its argument
+    bytes, flops (``FlopCounterMode``), collectives (``CommDebugMode``),
+    peak above the arguments and median wall."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import dryrun, inputs
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg, run_cfg, shape = dryrun_case(case)
+    mesh = make_host_mesh()
+    step, args = dryrun.build_step(cfg, run_cfg, shape, mesh)
+    dryrun.fill_inputs(args, cfg.vocab_size, seed=0)
+    arg_bytes = inputs.local_bytes(list(args))
+
+    def run():
+        with dryrun.placed():
+            return step(*args)
+    out = run()                       # warm-up: library handles, kernels
+    torch.cuda.synchronize()
+    del out
+    with FlopCounterMode(display=False) as fc, CommDebugMode() as cm:
+        out = run()
+    torch.cuda.synchronize()
+    del out
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del out
+    del args
+    return dict(arg_bytes=arg_bytes, flops=fc.get_total_flops(),
+                comms=cm.get_total_counts(), peak=peak,
+                wall=statistics.median(walls), walls=walls)
+
+
+def dryrun_against_card(smi: str) -> dict:
+    """(b): each case's dry run on a fake one-rank mesh against the same
+    step on the card; returns the launches of the real runs."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import launches
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_fake_mesh
+    dry = []
+    for case in DRYRUN_CHECK:
+        cfg, run_cfg, shape = dryrun_case(case)
+        mesh = make_fake_mesh((1, 1), ("data", "model"))
+        dry.append(dryrun.count_step(cfg, run_cfg, shape, mesh))
+    dist.destroy_process_group()
+    launches.reset()
+    real = [dryrun_real(case) for case in DRYRUN_CHECK]
+    counts = dict(launches.LAUNCHES)
+    dist.destroy_process_group()
+    for case, d, r in zip(DRYRUN_CHECK, dry, real):
+        tag = f"{case['arch']} {case['kind']} B={case['B']} S={case['S']}"
+        compute_s = d.flops / roofline.PEAK_FLOPS
+        memory_s = d.bytes / roofline.HBM_BW
+        bound_s = max(compute_s, memory_s)
+        rows = (("card", smi), ("layers", DRYRUN_LAYERS),
+                ("argument_bytes_dry", d.argument_bytes),
+                ("argument_bytes_card", r["arg_bytes"]),
+                ("flops_dry", d.flops), ("flops_card", r["flops"]),
+                ("collective_bytes_dry", sum(d.coll.values())),
+                ("collectives_card", r["comms"]),
+                ("peak_bytes_dry", d.temp_bytes),
+                ("peak_bytes_card", r["peak"]),
+                ("peak_ratio", d.temp_bytes / max(r["peak"], 1)),
+                ("bytes_dry", d.bytes), ("compute_s", compute_s),
+                ("memory_s", memory_s), ("wall_s", r["wall"]),
+                ("walls_s", r["walls"]), ("wall_over_bound",
+                                          r["wall"] / bound_s))
+        for k, v in rows:
+            print(f"phase dryrun: {tag} {k}={v}")
+        if d.argument_bytes != r["arg_bytes"]:
+            fail(f"phase dryrun: {tag}: argument bytes differ")
+        if d.flops != r["flops"]:
+            fail(f"phase dryrun: {tag}: flops differ")
+        if sum(d.coll.values()) != 0 or r["comms"] != 0:
+            fail(f"phase dryrun: {tag}: collectives on one rank")
+        if abs(d.temp_bytes - r["peak"]) > DRYRUN_PEAK_RTOL * r["peak"]:
+            fail(f"phase dryrun: {tag}: predicted peak {d.temp_bytes} not "
+                 f"within {DRYRUN_PEAK_RTOL} of {r['peak']}")
+        if r["wall"] < DRYRUN_WALL_FLOOR * bound_s:
+            fail(f"phase dryrun: {tag}: wall {r['wall']} s under the "
+                 f"roofline bound {bound_s} s: the counts are wrong")
+    return counts
+
+
+def dryrun_ops(dev) -> list:
+    """(c): the kernels through their custom ops bit for bit the direct
+    launcher calls at phase 12's shapes, the fake implementations'
+    shape, dtype and stride the real outputs'; timed for the kernels
+    line (op, plain version, library call, bound)."""
+    import torch
+    import torch.nn.functional as F
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_chunked
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+    g = torch.Generator(device=dev).manual_seed(15)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=dev)
+
+    def same_meta(fake, real, what):
+        if (tuple(fake.shape), fake.dtype, fake.stride()) != \
+                (tuple(real.shape), real.dtype, real.stride()):
+            fail(f"phase dryrun: {what}: fake output {tuple(fake.shape)} "
+                 f"{fake.dtype} {fake.stride()} is not the real one's "
+                 f"{tuple(real.shape)} {real.dtype} {real.stride()}")
+
+    out = []
+    gc = get_config("gemma2-2b")
+    B, S = MODEL[0]["B"], MODEL[0]["S"]
+    H, KV, hd = gc.n_heads, gc.n_kv_heads, gc.head_dim
+    cap, W = gc.attn_softcap, gc.sliding_window
+    op = torch.ops.repro_torch.flash_attention
+    entry = None
+    for dt in (torch.float32, torch.bfloat16):
+        q = randn(B, S, H, hd).to(dt)
+        k, v = randn(B, S, KV, hd).to(dt), randn(B, S, KV, hd).to(dt)
+        for window in (None, W):
+            o_op = op(q, k, v, True, window, cap)
+            o_k = flash_attention_kernel(q, k, v, causal=True,
+                                         window=window, softcap=cap)
+            if not bits_equal(o_op, o_k):
+                fail(f"phase dryrun: flash_attention op {dt} window="
+                     f"{window} is not bitwise the launcher's output")
+            with FakeTensorMode() as fm:
+                fo = op(fm.from_tensor(q), fm.from_tensor(k),
+                        fm.from_tensor(v), True, window, cap)
+            same_meta(fo, o_op, f"flash_attention {dt} window={window}")
+            print(f"phase dryrun: flash_attention op {dt} window={window} "
+                  f"bitwise the launcher; fake meta equal")
+        if dt == torch.float32:
+            kw = dict(causal=True, window=None, softcap=cap)
+            ms = median_ms(lambda: op(q, k, v, True, None, cap))
+            pms = median_ms(lambda: attention_ref(q, k, v, **kw), n=3,
+                            reps=3)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lms = median_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+            fl = attn_flops(B, S, H, hd, None)
+            nbytes = (2 * B * S * H * hd + 2 * B * S * KV * hd) * 4
+            bms, by = bound(nbytes, fl)
+            err = float((op(q, k, v, True, None, cap).float()
+                         - attention_ref(q, k, v, **kw).float()).abs().max())
+            entry = dict(name="flash_attention", route="cuda",
+                         source="src/repro_torch/csrc/flash_attention.cu",
+                         replaces="src/repro/kernels/flash_attention/"
+                                  "kernel.py:92",
+                         max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                         bound_by=by, library_ms=lms,
+                         via="torch.ops.repro_torch.flash_attention",
+                         shape=f"B={B} S={S} H={H} KV={KV} hd={hd} f32 "
+                               f"global softcap={cap}")
+        del q, k, v
+    out.append(entry)
+
+    mc = get_config("mamba2-780m")
+    b, s = MODEL[1]["B"], MODEL[1]["S"]
+    h, p, n, Q = mc.ssm_n_heads, mc.ssm_head_dim, mc.ssm_state, mc.ssm_chunk
+    x, dts = randn(b, s, h, p), F.softplus(randn(b, s, h))
+    A = -torch.exp(0.1 * randn(h))
+    Bm, Cm = randn(b, s, n), randn(b, s, n)
+    sop = torch.ops.repro_torch.ssd_scan
+    y_op, f_op = sop(x, dts, A, Bm, Cm, Q, None)
+    y_k, f_k = ssd_scan_kernel(x, dts, A, Bm, Cm, Q)
+    if not (bits_equal(y_op, y_k) and bits_equal(f_op, f_k)):
+        fail("phase dryrun: ssd_scan op is not bitwise the launcher's "
+             "output")
+    with FakeTensorMode() as fm:
+        fy, ff = sop(*(fm.from_tensor(t) for t in (x, dts, A, Bm, Cm)), Q,
+                     None)
+    same_meta(fy, y_op, "ssd_scan y")
+    same_meta(ff, f_op, "ssd_scan final state")
+    print("phase dryrun: ssd_scan op bitwise the launcher; fake meta equal")
+    ms = median_ms(lambda: sop(x, dts, A, Bm, Cm, Q, None))
+    pms = median_ms(lambda: ssd_chunked(x, dts, A, Bm, Cm, Q), n=3, reps=3)
+    yr, fr = ssd_chunked(x, dts, A, Bm, Cm, Q)
+    err = max(float((y_op - yr).abs().max()), float((f_op - fr).abs().max()))
+    nbytes = (2 * b * s * h * p * 4 + 4 * b * s * h + 4 * h
+              + 2 * b * s * n * 4 + 4 * b * h * n * p)
+    bms, by = bound(nbytes, ssd_flops(b, s, h, p, n, Q))
+    out.append(dict(name="ssd_scan", route="cuda",
+                    source="src/repro_torch/csrc/ssd_scan.cu",
+                    replaces="src/repro/kernels/ssd_scan/kernel.py:68",
+                    max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                    bound_by=by, library_ms=None,
+                    via="torch.ops.repro_torch.ssd_scan",
+                    shape=f"b={b} s={s} h={h} p={p} n={n} chunk={Q} f32"))
+    return out
+
+
+def dryrun_structure(dev) -> None:
+    """(d): STRUCT-* on a real device state on the card (no findings),
+    and the coverage rule on a spec table with a field dropped
+    (STRUCT-PSPEC) and with a dead field added (STRUCT-STALE)."""
+    from repro_torch.analysis import structure
+    from repro_torch.cohort.state import DeviceCohortState
+    from repro_torch.sharding import MeshShape, cohort_pspecs
+    found = structure.check_cohort_structure(dev)
+    print(f"phase dryrun: STRUCT-* on the card: {len(found)} findings")
+    if found:
+        fail(f"phase dryrun: STRUCT findings on the card: "
+             f"{[v.format() for v in found]}")
+    specs = cohort_pspecs(MeshShape(("clients",), (8,)), 16384)
+    fields = DeviceCohortState._fields
+    dropped = {f: s for f, s in specs.items() if f != "bc_at"}
+    dead = dict(specs, w_old=specs["w"])
+    rules = ([v.rule for v in structure.check_state_coverage(fields,
+                                                             dropped)],
+             [v.rule for v in structure.check_state_coverage(fields, dead)])
+    print(f"phase dryrun: planted spec faults: field dropped -> {rules[0]}, "
+          f"dead field -> {rules[1]}")
+    if rules != (["STRUCT-PSPEC"], ["STRUCT-STALE"]):
+        fail(f"phase dryrun: planted spec faults read {rules}")
+
+
+def phase_dryrun(dev, smi: str):
+    """Phase 15: (a) the dry-run CLI and report as users start them, (b)
+    the dry run's accounting against the card, (c) the kernels' custom
+    ops against the launchers, (d) STRUCT-* on the card.  Returns (the
+    real runs' launches, the kernels line's rows)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    dryrun_cli(env)
+    print(f"phase dryrun: (a) wall_s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    counts = dryrun_against_card(smi)
+    print(f"phase dryrun: (b) wall_s={time.perf_counter() - t0} "
+          f"launches={counts}")
+    for name in ("flash_attention", "ssd_scan"):
+        if not counts.get(name):
+            fail(f"phase dryrun: {name} was not launched by the real runs")
+    t0 = time.perf_counter()
+    rows = dryrun_ops(dev)
+    for r in rows:
+        r["launches"] = counts[r["name"]]
+    print(f"phase dryrun: (c) wall_s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    dryrun_structure(dev)
+    print(f"phase dryrun: (d) wall_s={time.perf_counter() - t0}")
+    return counts, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3069,6 +3503,10 @@ def main() -> int:
     t0 = time.perf_counter()
     trace_counts = phase_trace(dev, X, y, kw, smi)
     print(f"phase trace: wall_s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    _, dryrun_rows = phase_dryrun(dev, smi)
+    print(f"phase dryrun: wall_s={time.perf_counter() - t0}")
+    print(json.dumps({"phase": "dryrun", "kernels": dryrun_rows}))
     # launches: each kernel's count from the path that runs it most: the
     # scenario runs (in-kernel noise) for the tick kernels, each on every
     # tick or completion tick there (the main run's count and the host

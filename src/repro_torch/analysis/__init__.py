@@ -3,7 +3,7 @@
 Rule families (see ``python -m repro_torch.analysis --help``):
   PRNG-*    — PRNG address-space audit against the central salt
               registry (``repro_torch.analysis.salts``)
-  STRUCT-*  — dtype discipline of ``DeviceCohortState``
+  STRUCT-*  — spec coverage and dtype discipline of ``DeviceCohortState``
   INV-*     — protocol invariants model-checked over JSONL telemetry
               traces (``repro_torch.analysis.invariants``)
 

@@ -7,7 +7,8 @@ Rule families:
   * PRNG-FOLDIN-*  fold_in argument-tuple discipline per salt chain
               (duplicate constants, const/variable mixing,
               conflicting variable addresses — AST)
-  * STRUCT-*  DeviceCohortState dtype discipline (introspection of a
+  * STRUCT-*  DeviceCohortState spec coverage against
+              ``cohort_pspecs`` and dtype discipline (introspection of a
               tiny engine built on ``device``, the card by default;
               skipped with ``structure=False``)
   * INV-*     protocol invariants over a JSONL telemetry trace

@@ -1,5 +1,9 @@
 """Structural checks of the device engine's state (rule family STRUCT-*).
 
+  STRUCT-PSPEC   a ``DeviceCohortState`` field has no partition spec in
+                 ``repro_torch.sharding.cohort_pspecs``
+  STRUCT-STALE   ``cohort_pspecs`` carries a spec for a field that no
+                 longer exists (dead spec — usually a rename half done)
   STRUCT-DTYPE   dtype discipline over a constructed state: every tensor
                  field must be int32 (counters/rings/census — the device
                  engine's whole protocol state is int32, the reference's
@@ -7,20 +11,41 @@
                  dtype (int64, float64, bool, ...) silently breaks
                  host<->device and port<->reference bit parity
 
-The check introspects a real (tiny) engine state rather than a
-hand-maintained mirror list, so it cannot drift from the code it
-audits.  The reference's STRUCT-PSPEC / STRUCT-STALE rules check the
-state against its sharding specs; the port has none yet.
+The checks introspect the real NamedTuple and a real (tiny) engine
+state rather than a hand-maintained mirror list, so they cannot drift
+from the code they audit.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping
+from typing import Any, Dict, List, Mapping, Sequence
 
 import torch
 
 from repro_torch.analysis.base import Violation
 
 _WHERE = "repro_torch.cohort.state.DeviceCohortState"
+
+
+def check_state_coverage(fields: Sequence[str],
+                         pspecs: Mapping[str, Any],
+                         where: str = _WHERE) -> List[Violation]:
+    """Pure core: every state field has a spec, every spec has a field."""
+    out: List[Violation] = []
+    for f in fields:
+        if f not in pspecs:
+            out.append(Violation(
+                "STRUCT-PSPEC", where, 0,
+                f"state field {f!r} has no partition spec in "
+                f"repro_torch.sharding.cohort_pspecs — the [C, ...] block "
+                f"would silently replicate (or fail) on a sharded mesh; "
+                f"add it to sharding/specs.py"))
+    for f in pspecs:
+        if f not in fields:
+            out.append(Violation(
+                "STRUCT-STALE", where, 0,
+                f"cohort_pspecs declares a spec for {f!r}, which is not "
+                f"a state field — remove the dead spec"))
+    return out
 
 
 def check_state_dtypes(state_fields: Mapping[str, torch.Tensor],
@@ -66,5 +91,14 @@ def _tiny_device_state(device=None) -> Dict[str, Any]:
 
 
 def check_cohort_structure(device=None) -> List[Violation]:
-    """Run the dtype check against the live engine on ``device``."""
-    return check_state_dtypes(_tiny_device_state(device))
+    """Run the coverage check against the live state type and specs, and
+    the dtype check against the live engine on ``device``."""
+    from repro_torch.cohort.state import DeviceCohortState
+    from repro_torch.sharding import MeshShape, cohort_pspecs
+
+    # the rules read the mesh's axis names and sizes only: eight ranks
+    pspecs = cohort_pspecs(MeshShape(("clients",), (8,)), 8)
+    out = check_state_coverage(DeviceCohortState._fields, pspecs)
+    if not out:   # dtype pass needs a constructible state
+        out.extend(check_state_dtypes(_tiny_device_state(device)))
+    return out

@@ -12,9 +12,14 @@ One call is one synchronous round over the client cohorts of ``batch``:
 
 The gradient goes through the reference's own training cores (the dense
 attention and the chunked SSD: the kernels have no backward); the serve
-and prefill steps take the kernels' routes.  One card, no mesh:
-``client_axis`` and ``grad_pspecs`` are accepted for the reference's
-signature and ignored.
+and prefill steps take the kernels' routes.
+
+On plain tensors (one card) ``client_axis`` and ``grad_pspecs`` change
+nothing.  On DTensors (the dry run's meshes) ``grad_pspecs`` pins each
+client's gradient to the parameters' placements, and ``client_axis``
+(the reference's ``spmd_axis_name``) runs client ``c``'s update on pod
+``c``'s ("data", "model") sub-mesh — each rank computes its own pod's
+client — and sums U over the pods (the cross-pod all-reduce).
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from repro_torch import prng, tree
 from repro_torch.models import model as model_api
 from repro_torch.models.attention import dense_attention
 from repro_torch.models.ssm import ssd_chunked
+from repro_torch.sharding.context import constrain_tree, contiguous_stride
 
 F32 = torch.float32
 
@@ -77,6 +83,8 @@ def make_train_step(cfg, run_cfg, *, n_client_shards: int,
             grads = torch.autograd.grad(loss, flat, allow_unused=True)
         g = tree.unflatten(params, [torch.zeros_like(p) if d is None else d
                                     for p, d in zip(flat, grads)])
+        if grad_pspecs is not None:
+            g = constrain_tree(g, grad_pspecs)
         if dp.enabled:
             g = tree_clip(g, dp.clip_norm)
             g = tree_add_noise(g, rng, dp.clip_norm * dp.sigma)
@@ -84,7 +92,16 @@ def make_train_step(cfg, run_cfg, *, n_client_shards: int,
 
     def train_step(params, momentum, batch, eta_bar, rng):
         rngs = prng.split(rng, n_client_shards)
-        if n_client_shards > 1:
+        pods = _ClientPods.of(params, client_axis)
+        if n_client_shards > 1 and pods is not None:
+            c = pods.client
+            g, loss = per_client_update(
+                pods.params(params),
+                {k: pods.client_slice(v) for k, v in batch.items()},
+                rngs[c])
+            U = pods.sum_over_pods(g)
+            loss = pods.sum_over_pods(loss) / n_client_shards
+        elif n_client_shards > 1:
             U, losses = None, []
             for c in range(n_client_shards):
                 g, loss = per_client_update(
@@ -110,6 +127,68 @@ def make_train_step(cfg, run_cfg, *, n_client_shards: int,
         return new_params, momentum, metrics
 
     return train_step
+
+
+class _ClientPods:
+    """The client axis of a DTensor mesh: this rank's pod (its client),
+    the pod's sub-mesh over the other axes, and the moves between the
+    two meshes (the counterpart of the reference's ``vmap`` with
+    ``spmd_axis_name``)."""
+
+    def __init__(self, mesh, axis: str):
+        names = tuple(mesh.mesh_dim_names)
+        self.mesh, self.ax = mesh, names.index(axis)
+        self.sub = mesh[tuple(n for n in names if n != axis)]
+        self.client = mesh.get_local_rank(axis)
+
+    @classmethod
+    def of(cls, params, axis):
+        from torch.distributed.tensor import DTensor
+        leaf = tree.leaves(params)[0]
+        if axis is None or not isinstance(leaf, DTensor) \
+                or axis not in leaf.device_mesh.mesh_dim_names:
+            return None
+        return cls(leaf.device_mesh, axis)
+
+    def _sub_placements(self, x, drop_dim: bool):
+        from torch.distributed.tensor import Shard
+        pls = [p for i, p in enumerate(x.placements) if i != self.ax]
+        if drop_dim:
+            pls = [Shard(p.dim - 1) if p.is_shard() else p for p in pls]
+        return pls
+
+    def params(self, params):
+        """Each leaf (replicated over the pods) on the sub-mesh."""
+        from torch.distributed.tensor import DTensor
+        return tree.tree_map(
+            lambda x: DTensor.from_local(
+                x.to_local(), self.sub, self._sub_placements(x, False),
+                shape=x.shape, stride=x.stride(), run_check=False),
+            params)
+
+    def client_slice(self, x):
+        """This pod's client of a (C, ...) batch leaf sharded over the
+        pods on dim 0, on the sub-mesh."""
+        from torch.distributed.tensor import DTensor
+        shape = tuple(x.shape[1:])
+        return DTensor.from_local(
+            x.to_local()[0], self.sub, self._sub_placements(x, True),
+            shape=shape, stride=contiguous_stride(shape), run_check=False)
+
+    def sum_over_pods(self, t):
+        """Σ over the pods of a sub-mesh tree: partial sums on the full
+        mesh, reduced (all-reduce over the client axis)."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+
+        def one(x):
+            pls = list(x.placements)
+            part = DTensor.from_local(
+                x.to_local(), self.mesh,
+                pls[:self.ax] + [Partial("sum")] + pls[self.ax:],
+                shape=x.shape, stride=x.stride(), run_check=False)
+            return part.redistribute(
+                self.mesh, pls[:self.ax] + [Replicate()] + pls[self.ax:])
+        return tree.tree_map(one, t)
 
 
 def make_serve_step(cfg, run_cfg, *, seq_len: int, unroll: bool = False):

@@ -6,7 +6,9 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card.  Without CUDA, only an explicit
-    ``device="cpu"`` runs (on the plain PyTorch versions of the kernels)."""
+    ``device="cpu"`` runs (on the plain PyTorch versions of the kernels).
+    ``device="meta"`` builds shapes only (the dry run's parameter and
+    cache trees, the counterpart of ``jax.eval_shape``)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -19,6 +21,6 @@ def resolve_device(device=None) -> torch.device:
             raise RuntimeError(f"device={device!r} but CUDA is unavailable")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -226,6 +226,15 @@ def _cache_slot(pos: int, L_cache: int, ring: bool) -> int:
     return pos % L_cache if ring else min(pos, L_cache - 1)
 
 
+def _slot_mask(slot: int, L_cache: int, device) -> torch.Tensor:
+    """(1, L_cache, 1, 1) boolean, true at ``slot``: the new entry is
+    written with ``torch.where`` (a fresh cache, the old one left as it
+    was), which keeps a cache sharded along its length in place on a
+    mesh, where an indexed write would gather it."""
+    return (torch.arange(L_cache, device=device) == slot)[None, :, None,
+                                                          None]
+
+
 def _cache_mask(pos: int, slot: int, L_cache: int, window, ring: bool,
                 device):
     idx = torch.arange(L_cache, device=device)
@@ -256,10 +265,9 @@ def decode_attend(cfg, lp, x, cache_k, cache_v, pos, window=None, *,
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(cfg, lp, x, positions, rope=rope)
     slot = _cache_slot(pos, L_cache, ring)
-    cache_k = cache_k.clone()
-    cache_v = cache_v.clone()
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    at = _slot_mask(slot, L_cache, x.device)
+    cache_k = torch.where(at, k.to(cache_k.dtype), cache_k)
+    cache_v = torch.where(at, v.to(cache_v.dtype), cache_v)
 
     mask = _cache_mask(pos, slot, L_cache, window, ring, x.device)
     out = _scores_to_out(cfg, q, cache_k, cache_v, mask)
@@ -283,11 +291,11 @@ def decode_attend_quantized(cfg, lp, x, qcache, pos, window=None, *,
     kq, ks = quantize_kv(k)
     vq, vs = quantize_kv(v)
     slot = _cache_slot(pos, L_cache, ring)
-    new = {name: t.clone() for name, t in qcache.items()}
-    new["k"][:, slot] = kq[:, 0]
-    new["v"][:, slot] = vq[:, 0]
-    new["k_scale"][:, slot] = ks[:, 0]
-    new["v_scale"][:, slot] = vs[:, 0]
+    at = _slot_mask(slot, L_cache, x.device)
+    new = {"k": torch.where(at, kq, qcache["k"]),
+           "v": torch.where(at, vq, qcache["v"]),
+           "k_scale": torch.where(at[..., 0], ks, qcache["k_scale"]),
+           "v_scale": torch.where(at[..., 0], vs, qcache["v_scale"])}
 
     k_f = dequantize_kv(new["k"], new["k_scale"]).to(q.dtype)
     v_f = dequantize_kv(new["v"], new["v_scale"]).to(q.dtype)

@@ -27,6 +27,8 @@ F32 = torch.float32
 
 def normal_init(key, shape, dtype, stddev: float = 0.02, device=None):
     dev = resolve_device(device)
+    if dev.type == "meta":          # shapes only: nothing to draw
+        return torch.empty(shape, dtype=dtype, device=dev)
     return (stddev * prng.normal(key, shape, device=dev)).to(dtype)
 
 

@@ -24,7 +24,9 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (apply_norm, init_norm, normal_init,
                                        padded_vocab, sinusoidal_positions,
                                        unembed)
-from repro_torch.models.transformer import _stack_norm, chunked_loss, layer
+from repro_torch.models.transformer import (_stack_norm, chunked_loss, layer,
+                                            layers)
+from repro_torch.sharding.context import constrain
 
 
 def init_encdec(cfg, key, dtype, device=None):
@@ -71,18 +73,17 @@ def encode(cfg, params, encoder_embeds, *, remat: bool = True,
     B, S, d = encoder_embeds.shape
     dev = encoder_embeds.device
     pe = sinusoidal_positions(S, d, device=dev).to(encoder_embeds.dtype)
-    x = encoder_embeds + pe[None]
+    x = constrain(encoder_embeds + pe[None])
     positions = _positions(B, S, dev)
     full = torch.ones((1, 1, S, S), dtype=torch.bool, device=dev)
-    for li in range(cfg.n_encoder_layers):
-        lp = layer(params["encoder"], li)
+    for lp in layers(params["encoder"]):
         h = apply_norm(cfg, x, lp["ln1"])
         q, k, v = attn._project_qkv(cfg, lp["attn"], h, positions, rope=False)
         o = attn._scores_to_out(cfg, q, k, v, full)
         o = torch.einsum("bsq,qd->bsd", o.reshape(B, S, -1), lp["attn"]["wo"])
         x = x + o
         h2 = apply_norm(cfg, x, lp["ln2"])
-        x = x + mlp_mod.apply_mlp(cfg, lp["mlp"], h2)
+        x = constrain(x + mlp_mod.apply_mlp(cfg, lp["mlp"], h2))
     return apply_norm(cfg, x, params["encoder_final_norm"])
 
 
@@ -98,10 +99,9 @@ def decode_full(cfg, params, tokens, enc_out, *, remat: bool = True,
                 unroll: bool = False, attn_core: Optional[Callable] = None):
     """Teacher-forced decoder pass.  tokens (B,S_dec)."""
     B, S = tokens.shape
-    x = _decoder_embed(cfg, params, tokens)
+    x = constrain(_decoder_embed(cfg, params, tokens))
     positions = _positions(B, S, x.device)
-    for li in range(cfg.n_layers):
-        lp = layer(params["decoder"], li)
+    for lp in layers(params["decoder"]):
         h = apply_norm(cfg, x, lp["ln1"])
         x = x + attn.attend_full(cfg, lp["self_attn"], h, positions,
                                  rope=False, core=attn_core)
@@ -109,7 +109,7 @@ def decode_full(cfg, params, tokens, enc_out, *, remat: bool = True,
         ek, ev = attn.project_cross_kv(cfg, lp["cross_attn"], enc_out)
         x = x + attn.cross_attend(cfg, lp["cross_attn"], hx, ek, ev)
         h2 = apply_norm(cfg, x, lp["ln2"])
-        x = x + mlp_mod.apply_mlp(cfg, lp["mlp"], h2)
+        x = constrain(x + mlp_mod.apply_mlp(cfg, lp["mlp"], h2))
     return apply_norm(cfg, x, params["final_norm"])
 
 

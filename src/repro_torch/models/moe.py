@@ -9,7 +9,9 @@ work, so it follows the reference's tie rules exactly: ``top_k`` takes
 the lower expert index first among equal probabilities (a stable sort),
 and a one-hot of an index past its width is all zeros, as ``jax.nn.
 one_hot`` gives it.  The reference's expert-sharding hooks
-(``constrain``, ``constrain_expert``) have no counterpart on one card.
+(``constrain``, ``constrain_expert``) sit where the reference calls
+them; they act only on DTensors under a spec the dry run installs, and
+are the identity otherwise.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch import prng
 from repro_torch.models.common import fan_in_init, gated_act
+from repro_torch.sharding.context import constrain, constrain_expert
 
 F32 = torch.float32
 
@@ -84,9 +87,8 @@ def apply_moe(cfg, lp, x, *, capacity_factor: float = None,
     Sp = S + pad
     M = Sp // gs
     xg = xp.reshape(B, M, gs, d)
-    valid = torch.ones((B, Sp), dtype=torch.bool, device=x.device)
-    valid[:, S:] = False
-    valid = valid.reshape(B, M, gs)
+    valid = (torch.arange(Sp, device=x.device) < S).expand(B, Sp).reshape(
+        B, M, gs)
 
     logits = torch.einsum("bmnd,de->bmne", xg.to(F32), lp["router"].to(F32))
     probs = torch.softmax(logits, dim=-1)                  # (B,M,gs,E)
@@ -96,9 +98,11 @@ def apply_moe(cfg, lp, x, *, capacity_factor: float = None,
     Cg = group_capacity(gs, E, K, capacity_factor)
 
     counts = torch.zeros((B, M, E), dtype=F32, device=x.device)
-    dispatch = torch.zeros((B, M, gs, E, Cg), dtype=x.dtype, device=x.device)
-    combine = torch.zeros((B, M, gs, E, Cg), dtype=MOE_COMBINE_DTYPE,
-                          device=x.device)
+    dispatch = constrain(torch.zeros((B, M, gs, E, Cg), dtype=x.dtype,
+                                     device=x.device))
+    combine = constrain(torch.zeros((B, M, gs, E, Cg),
+                                    dtype=MOE_COMBINE_DTYPE,
+                                    device=x.device))
     for k in range(K):                                      # K <= 4
         oh = _one_hot(top_i[..., k], E) * valid[..., None]  # (B,M,gs,E)
         pos = torch.cumsum(oh, dim=2) - oh + counts[:, :, None, :]
@@ -118,15 +122,20 @@ def apply_moe(cfg, lp, x, *, capacity_factor: float = None,
     P_e = torch.sum(probs * valid[..., None], dim=(0, 1, 2)) / nv
     aux = torch.sum(f_e * P_e)
 
-    xe = torch.einsum("bmnec,bmnd->bmecd", dispatch, xg)
+    xe = constrain_expert(torch.einsum("bmnec,bmnd->bmecd", dispatch, xg),
+                          last_is_ff=False)
     if "wg" in lp:
-        gate = torch.einsum("bmecd,edf->bmecf", xe, lp["wg"])
-        up = torch.einsum("bmecd,edf->bmecf", xe, lp["wu"])
+        gate = constrain_expert(
+            torch.einsum("bmecd,edf->bmecf", xe, lp["wg"]), last_is_ff=True)
+        up = constrain_expert(
+            torch.einsum("bmecd,edf->bmecf", xe, lp["wu"]), last_is_ff=True)
         act = gated_act(cfg.activation, gate, up)
     else:
-        act = F.gelu(torch.einsum("bmecd,edf->bmecf", xe, lp["wu"]),
-                     approximate="tanh")
-    ye = torch.einsum("bmecf,efd->bmecd", act, lp["wd"])
+        act = constrain_expert(F.gelu(
+            torch.einsum("bmecd,edf->bmecf", xe, lp["wu"]),
+            approximate="tanh"), last_is_ff=True)
+    ye = constrain_expert(torch.einsum("bmecf,efd->bmecd", act, lp["wd"]),
+                          last_is_ff=False)
     out = torch.einsum("bmnec,bmecd->bmnd", combine.to(x.dtype), ye)
     out = out.reshape(B, Sp, d)[:, :S]
 

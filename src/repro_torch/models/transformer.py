@@ -10,7 +10,9 @@ alternation is a per-layer ``window`` (``layer_windows``).
 reference's, and ignored: eager PyTorch has no scan to unroll, and the
 kernels of ``forward`` have no backward to rematerialize for.  The
 reference's sharding hooks (``constrain``, ``shard_layer_param_
-cotangents``) have no counterpart on one card.
+cotangents``) sit where the reference calls them; they act only on
+DTensors under a spec the dry run installs (``repro_torch.sharding.
+context``), and are the identity otherwise.
 
 Kernels: ``forward`` runs each attention layer through ``attend_full``
 with ``attn_core`` (None: the ``flash_attention`` kernel on a CUDA
@@ -38,6 +40,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (apply_norm, embed_tokens, init_norm,
                                        normal_init, padded_vocab, unembed)
+from repro_torch.sharding.context import (constrain,
+                                          shard_layer_param_cotangents)
 
 F32 = torch.float32
 
@@ -84,6 +88,16 @@ def _stack_norm(cfg, key, L, d, dtype, device=None):
 def layer(blocks, i: int):
     """Layer ``i`` of a stacked ``(L, ...)`` params (or cache) tree."""
     return tree.tree_map(lambda a: a[i], blocks)
+
+
+def layers(blocks) -> List:
+    """Every layer of a stacked ``(L, ...)`` tree, as views from one
+    ``unbind`` per leaf: its backward writes each stacked gradient once,
+    where a ``layer(blocks, i)`` per layer would write it L times (each
+    select's backward a full (L, ...) tensor of zeros)."""
+    flat = [torch.unbind(a) for a in tree.leaves(blocks)]
+    return [tree.unflatten(blocks, [u[i] for u in flat])
+            for i in range(len(flat[0]))]
 
 
 def layer_windows(cfg, seq_len: int) -> List[int]:
@@ -146,7 +160,7 @@ def forward(cfg, params, tokens, *, remat: bool = True,
     it) runs (local, global) layer pairs, the local layer through the
     block-local path, when the config alternates and S > 2 * window."""
     B, S = tokens.shape
-    x = embed_tokens(cfg, params, tokens)
+    x = constrain(embed_tokens(cfg, params, tokens))
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device)[None].expand(B, S)
@@ -163,17 +177,21 @@ def forward(cfg, params, tokens, *, remat: bool = True,
 
     if chunked_local:
         W = int(cfg.sliding_window)
+        lps = layers(params["blocks"])
         for pi in range(cfg.n_layers // 2):
-            x, a1 = _layer_body(cfg, x, layer(params["blocks"], 2 * pi),
-                                None, positions, chunked_local_window=W,
-                                **kw)
-            x, a2 = _layer_body(cfg, x, layer(params["blocks"], 2 * pi + 1),
-                                S, positions, **kw)
+            lp_loc = shard_layer_param_cotangents(lps[2 * pi])
+            lp_glb = shard_layer_param_cotangents(lps[2 * pi + 1])
+            x, a1 = _layer_body(cfg, x, lp_loc, None, positions,
+                                chunked_local_window=W, **kw)
+            x = constrain(x)
+            x, a2 = _layer_body(cfg, x, lp_glb, S, positions, **kw)
+            x = constrain(x)
             aux = aux + a1 + a2
     else:
-        for li in range(cfg.n_layers):
-            x, a = _layer_body(cfg, x, layer(params["blocks"], li),
-                               windows[li], positions, **kw)
+        for li, lp in enumerate(layers(params["blocks"])):
+            lp = shard_layer_param_cotangents(lp)
+            x, a = _layer_body(cfg, x, lp, windows[li], positions, **kw)
+            x = constrain(x)
             aux = aux + a
     x = apply_norm(cfg, x, params["final_norm"])
     return x, aux
@@ -194,9 +212,9 @@ def chunked_loss(cfg, params, hidden, labels, mask=None, chunk: int = 512,
     if pad:
         hidden = _pad_seq(hidden, pad)
         labels = _pad_seq(labels, pad)
-        if mask is None:
-            mask = torch.ones_like(labels)
-            mask[:, S:] = 0
+        if mask is None:   # ones over the S positions, zeros over the pad
+            mask = (torch.arange(S + pad, device=labels.device) < S).to(
+                labels.dtype).expand(labels.shape)
         else:
             mask = _pad_seq(mask, pad)
         S = S + pad

@@ -7,7 +7,8 @@ for the port (``prng.PRNGKey`` / ``prng.fold_in``, the port's batched
 ``fold_in(key[None, :], addrs)`` for ``vmap(fold_in)``,
 ``repro_torch.analysis.salts``), fires the same rules under the port's
 lint as the original under the reference's.  The registry's values and
-chains equal the reference's; STRUCT-DTYPE reads torch dtypes; and
+chains equal the reference's; STRUCT-DTYPE reads torch dtypes, and
+STRUCT-PSPEC / STRUCT-STALE the port's own cohort_pspecs; and
 ``python -m repro_torch.analysis src/repro_torch`` is clean with an
 empty baseline.
 """
@@ -391,6 +392,56 @@ def test_struct_dtype_fires_on_a_planted_state_field(dtype):
 
 def test_struct_live_port_state_is_clean():
     assert structure.check_cohort_structure("cpu") == []
+
+
+def test_struct_missing_pspec_fires():
+    found = structure.check_state_coverage(["w", "new_field"], {"w": None})
+    assert _rules(found) == ["STRUCT-PSPEC"]
+    assert "new_field" in found[0].message
+
+
+def test_struct_stale_spec_fires():
+    found = structure.check_state_coverage(
+        ["w"], {"w": None, "renamed_away": None})
+    assert _rules(found) == ["STRUCT-STALE"]
+    assert "renamed_away" in found[0].message
+
+
+@pytest.mark.parametrize("plant", ["dropped", "dead", "both"])
+def test_struct_coverage_on_the_live_specs_matches_the_reference(plant):
+    """The port's cohort_pspecs cover DeviceCohortState exactly; a spec
+    table with a field dropped, a dead field added, or both, gives the
+    reference's rules on the same names."""
+    from repro.analysis import structure as ref_structure
+    from repro_torch.cohort.state import DeviceCohortState
+    from repro_torch.sharding import MeshShape, cohort_pspecs
+    fields = DeviceCohortState._fields
+    specs = cohort_pspecs(MeshShape(("clients",), (4,)), 16)
+    assert structure.check_state_coverage(fields, specs) == []
+    if plant in ("dropped", "both"):
+        specs = {f: s for f, s in specs.items() if f != "bc_at"}
+    if plant in ("dead", "both"):
+        specs = dict(specs, w_old=specs["w"])
+    found = structure.check_state_coverage(fields, specs)
+    ref = ref_structure.check_state_coverage(fields, specs)
+    want = {"dropped": ["STRUCT-PSPEC"], "dead": ["STRUCT-STALE"],
+            "both": ["STRUCT-PSPEC", "STRUCT-STALE"]}[plant]
+    assert _rules(found) == _rules(ref) == want
+    assert [v.message.split("'")[1] for v in found] == \
+        [v.message.split("'")[1] for v in ref]
+
+
+def test_struct_check_reads_the_port_specs(monkeypatch):
+    """check_cohort_structure reports a field the live specs lack."""
+    from repro_torch.sharding import specs as tspecs
+    real = tspecs.cohort_pspecs
+    monkeypatch.setattr(tspecs, "cohort_pspecs", lambda m, n: {
+        f: s for f, s in real(m, n).items() if f != "iters"})
+    import repro_torch.sharding as sh
+    monkeypatch.setattr(sh, "cohort_pspecs", tspecs.cohort_pspecs)
+    found = structure.check_cohort_structure("cpu")
+    assert _rules(found) == ["STRUCT-PSPEC"] and "'iters'" in \
+        found[0].message
 
 
 # --- baseline / plumbing -----------------------------------------------------
