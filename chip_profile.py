@@ -11,8 +11,9 @@ again under ``torch.profiler`` and prints:
 * device time by kernel (``key_averages``, top rows by device time) and
   the device busy share of the run's wall time;
 * the same run's phases (integer tick phase, SGD block, DP noise draw,
-  the fused kernels) as host-timed spans closed by a device sync, so
-  each span's time includes the device work it enqueued.
+  the fused kernels, the server's step among them) as host-timed spans
+  closed by a device sync, so each span's time includes the device work
+  it enqueued.
 """
 from __future__ import annotations
 
@@ -69,14 +70,14 @@ def spans(make, rounds):
         return wrap
 
     orig = dict(normal=prng.normal, run_block=eng.ctask.run_block,
-                bucket_apply=dmod.bucket_apply,
+                server_apply=dmod.server_apply,
                 tick_deliver=dmod.tick_deliver,
                 tick_scatter=dmod.tick_scatter,
                 cohort_clip_noise=dmod.cohort_clip_noise)
     try:
         dmod.prng.normal = timed("dp_noise_draw", orig["normal"])
         eng.ctask.run_block = timed("sgd_block", orig["run_block"])
-        for k in ("bucket_apply", "tick_deliver", "tick_scatter",
+        for k in ("server_apply", "tick_deliver", "tick_scatter",
                   "cohort_clip_noise"):
             setattr(dmod, k, timed(k, orig[k]))
         torch.cuda.synchronize()
@@ -86,7 +87,7 @@ def spans(make, rounds):
         wall = time.perf_counter() - t0
     finally:
         dmod.prng.normal = orig["normal"]
-        for k in ("bucket_apply", "tick_deliver", "tick_scatter",
+        for k in ("server_apply", "tick_deliver", "tick_scatter",
                   "cohort_clip_noise"):
             setattr(dmod, k, orig[k])
     return wall, acc, res, eng

@@ -5,6 +5,14 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
 
+0. ``server_step`` (first: a later profiler session of one process may
+   lose events): the main run and both scenario runs (at most
+   ``SERVER_TICKS`` ticks each) with each server step's operands recorded,
+   each step replayed through the kernel and through the separate-launch
+   route (v' and every row bit for bit alike), the device operations a tick
+   of each route counted with ``torch.profiler`` by tick kind, one session
+   a run with probe kernels between the steps, discarded and run again
+   where it lost a probe (the kernel's count must be 1);
 1. every kernel against its plain PyTorch version at the shapes of the
    main run (bitwise where the kernel keeps the plain version's
    rounding, within a stated tolerance where it reorders a sum), twice
@@ -15,7 +23,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    rows;
    also ``bucket_apply`` at FedAsync's ``A = R`` with decay weights and
    ``tick_scatter`` at its ``G = L * R``, and the in-kernel noise's
-   counter stream bit for bit; ``tick_scatter`` (and, in phase 6,
+   counter stream bit for bit; row 1 as the server's whole step of a
+   tick (``server_apply``, one launch) bit for bit its twin on v' and
+   every row it writes in place, in every case of the CPU test, with the
+   10-call graph time of the main run's and the scenarios' ticks beside
+   the separate-launch route's; ``tick_scatter`` (and, in phase 6,
    ``clip_accumulate``) also bit for bit against its order-exact twin,
    with the time of each of its passes (``torch.profiler``), its ptxas
    report (a spill fails) and a planted fault, one block's partial left
@@ -60,7 +72,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    for one round each, each bit for bit against the device engine with
    operand noise (the model, the eval losses, ``w``/``U``/``v``, the
    integer state and the op census), with its wall, ms per tick and
-   kernel launches (counts zeroed before each host run, read after);
+   kernel launches (counts zeroed before each host run, read after; one
+   server-step launch per apply);
 11. ``event``: the discrete-event simulator at D = 785 over C = 64
    clients (the main run's data; the population is cut, the engine
    being per-client Python) in the three-way-parity configuration (d =
@@ -88,10 +101,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    with operand noise and with in-kernel noise, the host engine bit for
    bit against the first two, the event simulator against the first
    (integers exact, ``EVENT_*_ATOL``), the engine's reckoned rows beside
-   the peak memory; then rows 1-5 at that D against their plain versions
-   slab by slab, each timed and bounded; (c) ``python -m
-   repro_torch.launch.train`` at full width with a checkpoint that loads
-   back through ``load_fl_state``, and reduced with DP;
+   the peak memory, one server-step launch a tick (device) or an apply
+   (host); then rows 1-5 at that D against their plain versions slab by
+   slab, each timed and bounded (row 1 as the server step, with and
+   without a fired broadcast row, beside the separate-launch route); (c)
+   ``python -m repro_torch.launch.train`` at full width with a checkpoint
+   that loads back through ``load_fl_state``, and reduced with DP;
 14. ``trace``: (a) the main run with ``trace=`` a JSONL file, once per
    noise source (rows 1-5 launched), each run's records and wall spans
    made one Perfetto document as ``python -m repro_torch.telemetry``
@@ -363,6 +378,203 @@ def scatter_bound(C: int, D: int, G: int, nd: int):
                       + 2 * C * D) + G + C, 2 * G * C * D + 3 * nd * D)
 
 
+def server_bound(D: int, A: int, *, arr: bool, hit: bool = False,
+                 buffered: bool = False, flush: bool = False, fired: int = 0):
+    """server_apply's bound for this call's data: read v and, where the
+    step needs them, the due slot's A rows, the due overflow row's and the
+    buffer; write v', the reset rows (A of the slot, A of the overflow
+    entry), the buffer where it changes and the fired broadcast rows; a
+    product and a sum per due element, one difference per element of v'."""
+    need_due = arr
+    rows_in = 1 + (A if need_due else 0) + (A if need_due and hit else 0)
+    rows_out = 1 + fired + A + (A if hit else 0)
+    if buffered and (arr or flush):
+        rows_in += 1
+        rows_out += 1
+    applied = flush if buffered else arr
+    flops = (2 * A * D if need_due else 0) + (D if applied else 0)
+    return bound(4.0 * D * (rows_in + rows_out), flops)
+
+
+def old_server_route(v, ring, slot, dec, has_arr, *, ovf=None,
+                     ovf_hit=None, buf=None, flush=None, bc_v=None,
+                     fired=None, plain_ring=None, plain_ovf=None):
+    """The device engine's server step as separate launches, the way its
+    float phase ran before ``server_apply`` took it over: the due
+    overflow entry as a masked sum over the bucket, ``ovf_due + slot``,
+    FedBuff's bank and flush ``where``s, the flag cast and the kernel of
+    ``bucket_apply``, a clone of the whole ring with one slot set to 0.0
+    (FedAsync: of both rings), the broadcast rows rewritten whole.  ring
+    [L, A, D]; ovf [Q, A, D].  Returns (v', ring, ovf, buf, bc_v), none in
+    place: the yardstick of the launches and the time the kernel saves."""
+    import torch
+    from repro_torch.kernels.tick_fused import bucket_apply
+    due = ring[slot]
+    if ovf is not None:
+        hit_f = ovf_hit.to(torch.float32)
+        any_hit = ovf_hit.any()
+        if plain_ovf is not None:        # FedAsync's plain bucket too
+            torch.where(any_hit, (plain_ovf * hit_f[:, None]).sum(0), 0.0)
+            plain_ovf = torch.where(ovf_hit[:, None], 0.0, plain_ovf)
+        due = torch.where(any_hit, (ovf * hit_f[:, None, None]).sum(0),
+                          0.0) + due
+        ovf = torch.where(ovf_hit[:, None, None], 0.0, ovf)
+    if buf is not None:
+        buf = torch.where(has_arr, buf + due[0], buf)
+        flush.reshape(1).to(torch.int32)       # the wrapper's cast launch
+        v2 = bucket_apply(v, buf[None, :], dec, flush)
+        buf = torch.where(flush, 0.0, buf)
+    else:
+        has_arr.reshape(1).to(torch.int32)
+        v2 = bucket_apply(v, due, dec, has_arr)
+    if plain_ring is not None:
+        plain_ring = plain_ring.clone()
+        plain_ring[slot] = 0.0
+    ring = ring.clone()
+    ring[slot] = 0.0
+    if bc_v is not None:
+        bc_v = torch.where(fired[:, None], v2[None, :], bc_v)
+    return v2, ring, ovf, buf, bc_v
+
+
+def server_case(dev, D, kind, far, arr, fl, nf, g, *, L=2, B=4):
+    """Operands of one server step at width D (the device engine's
+    layout: ring [L, A, D], overflow bucket [Q, A, D], Q = 2, A = B under
+    FedAsync), -0.0 planted in v, the due slot, the overflow rows and the
+    buffer.  Returns (ring, slot, args, kwargs) for ``server_apply`` on the
+    slot's rows; the kwargs' tensors are the ones it writes in place."""
+    import torch
+    A = B if kind == "fedasync" else 1
+    Q = 2
+
+    def rn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    v, ring, ovf, buf, bc = rn(D), rn(L, A, D), rn(Q, A, D), rn(D), rn(B, D)
+    z = min(D, 12)
+    v[:z:2] = -0.0
+    ring[1, :, 1:z:3] = -0.0
+    ovf[:, :, :z:3] = -0.0
+    buf[2:z:2] = -0.0
+    hit = torch.zeros(Q, dtype=torch.bool, device=dev)
+    hit[1] = far == "due"
+    fired = torch.zeros(B, dtype=torch.bool, device=dev)
+    fired[1:1 + nf] = True
+    dec = (0.6 * (torch.arange(A, device=dev, dtype=torch.float32) + 1.0)
+           ** -0.5 if A > 1 else torch.ones(1, device=dev))
+    kw = dict(reset=True, ovf=ovf if far != "none" else None,
+              ovf_hit=hit if far != "none" else None,
+              buf=buf if kind == "fedbuff" else None,
+              flush=torch.tensor(fl, device=dev),
+              bc_v=bc if nf else None, fired=fired)
+    return ring, 1, (v, ring[1], dec, torch.tensor(arr, device=dev)), kw
+
+
+def server_cases():
+    """(kind, far tier, has_arr, flush, fired rows): every case of
+    ``tests/test_torch_server_apply.py``."""
+    for kind in ("paper", "fedasync", "fedbuff"):
+        for far in ("none", "due", "idle"):
+            for arr in (True, False):
+                for fl in ((True, False) if kind == "fedbuff" else (False,)):
+                    for nf in (0, 1, 2):
+                        yield kind, far, arr, fl, nf
+
+
+def clone_case(ring, args, kw):
+    """A deep copy of ``server_case``'s operands (the slot a view of the
+    copied ring again)."""
+    ring2 = ring.clone()
+    kw2 = {k: (t.clone() if hasattr(t, "clone") else t)
+           for k, t in kw.items()}
+    return ring2, (args[0].clone(), ring2[1], args[2].clone(),
+                   args[3].clone()), kw2
+
+
+def short_op(name: str) -> str:
+    """A device operation's name without its template and arguments."""
+    import re
+    name = re.sub(r"^void |at::native::|\(anonymous namespace\)::", "",
+                  name)
+    return re.split(r"[<(]", name)[0].strip() or name
+
+
+# torch.profiler sessions that device_ops runs before it gives up, and
+# the pad fills that open what a session records (the first events the
+# tracer loses, where it loses any: 5 at most seen)
+PROFILE_TRIES = 4
+PROFILE_PADS = 16
+
+
+def device_ops(runs, what: str) -> list:
+    """Device operations (kernels, copies, fills) of each of ``runs``, by
+    short name, one dict a run.  ``runs`` are (setup, run) pairs:
+    ``setup()`` makes ``run``'s argument outside the profiler.  One
+    ``torch.profiler`` session holds every run, each between device syncs
+    and between probe kernels (``torch.cuda._sleep(0)``, not counted), so
+    the device events between two probes are that run's own (no mapping
+    of the device timeline onto the host's clock).  A session on the card
+    has been seen to lose its first device events every time after the
+    process's first session, and once to record no device event at all:
+    so the session records only after a warm-up step (the profiler's
+    schedule: the tracer starts during it and its events are dropped), a
+    pause and PROFILE_PADS fills of a pad tensor open what it records and
+    one fill closes it, outside the probes and not counted, and a session
+    that lacks a probe is
+    discarded and run again from fresh setups, at most PROFILE_TRIES
+    sessions in all.  Returns (counts, sessions discarded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    pad = torch.empty(1, device="cuda")
+    for attempt in range(PROFILE_TRIES):
+        args = [setup() for setup, _ in runs]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(4):
+                pad.fill_(0.0)
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            prof.step()                 # warm-up over: record from here
+            time.sleep(0.05)
+            for _ in range(PROFILE_PADS):
+                pad.fill_(0.0)
+            torch.cuda.synchronize()
+            for (_, run), a in zip(runs, args):
+                torch.cuda._sleep(0)
+                torch.cuda.synchronize()
+                run(a)
+                torch.cuda.synchronize()
+            torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+            pad.fill_(0.0)
+            torch.cuda.synchronize()
+            prof.step()                 # the recording ends
+        evs = sorted((e for e in prof.events()
+                      if "CUDA" in str(getattr(e, "device_type", ""))),
+                     key=lambda e: e.time_range.start)
+        probes = [i for i, e in enumerate(evs) if "spin_kernel" in e.name]
+        if len(probes) == len(runs) + 1:
+            out = []
+            for i0, i1 in zip(probes, probes[1:]):
+                cnt = {}
+                for e in evs[i0 + 1:i1]:
+                    key = short_op(e.name)
+                    cnt[key] = cnt.get(key, 0) + 1
+                out.append(cnt)
+            return out, attempt
+        lead = probes[0] if probes else len(evs)
+        tail = len(evs) - 1 - probes[-1] if probes else 0
+        print(f"{what}: profiler session {attempt + 1} recorded "
+              f"{len(probes)} of {len(runs) + 1} probes and {len(evs)} "
+              f"device events ({lead} before the first probe, {tail} after "
+              f"the last, {PROFILE_PADS} and 1 sent): discarded")
+    fail(f"{what}: {PROFILE_TRIES} profiler sessions in turn lost device "
+         f"events")
+
+
 def clip_bound(N: int, D: int, esz: int):
     """clip_accumulate's bound: read G once, write D f32; a product and a
     sum per element for the norms and again for the scaled sums."""
@@ -424,6 +636,67 @@ def bound_terms(nbytes: float, flops: float, int_ops: float = 0.0):
 def bound(nbytes: float, flops: float, int_ops: float = 0.0):
     t_b, t_o = bound_terms(nbytes, flops, int_ops)
     return (max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+
+
+def server_step_kernel(dev, D: int, B: int, L: int, g) -> dict:
+    """Row 1's kernel as the server step (``server_apply``): bit for bit
+    its twin on the card, on v' and every row it writes in place, in every
+    case of the CPU test at D (A = 1, and A = B = R under FedAsync), two
+    launches alike; then the 10-call graph time of the ticks of the main
+    run and of scenarios (a) and (b), beside the twin's and the
+    separate-launch route's (``old_server_route``) on the same operands,
+    and each call's bound.  Returns row 1's keys."""
+    import torch
+    from repro_torch.kernels.tick_fused import server_apply, server_apply_ref
+    n = 0
+    for case in server_cases():
+        ring0, _, args0, kw0 = server_case(dev, D, *case, g, L=L, B=B)
+        outs = []
+        for fn in (server_apply, server_apply, server_apply_ref):
+            ring, args, kw = clone_case(ring0, args0, kw0)
+            outs.append((fn(*args, **kw), ring, kw["ovf"], kw["buf"],
+                         kw["bc_v"]))
+        for a, b, c in zip(*outs):
+            if a is None:
+                continue
+            if not (bits_equal(a, b) and bits_equal(a, c)):
+                fail(f"server_apply {case} at D={D}: not bitwise equal to "
+                     f"its twin / itself")
+        n += 1
+    print(f"phase kernels: server_apply bitwise against server_apply_ref "
+          f"in {n} cases at D={D} (A = 1 and A = {B}), -0.0 planted")
+    # the ticks: main (paper, no far tier), (a) FedAsync (A = R, no far
+    # tier), (b) FedBuff with an overflow entry due; each without and with
+    # one fired broadcast row
+    ticks = dict(main=("paper", "none", False), a=("fedasync", "none", False),
+                 b=("fedbuff", "due", True))
+    res = {}
+    for tag, (kind, far, fl) in ticks.items():
+        for nf in (0, 1):
+            ring, slot, args, kw = server_case(dev, D, kind, far, True, fl,
+                                               nf, g, L=L, B=B)
+            A = args[1].shape[0]
+            okw = {k: kw[k] for k in ("ovf", "ovf_hit", "buf", "flush",
+                                      "bc_v", "fired")}
+            if kind == "fedasync":
+                okw.update(plain_ring=torch.zeros((L, D), device=dev))
+            t_k = median_ms(lambda: server_apply(*args, **kw))
+            t_p = median_ms(lambda: server_apply_ref(*args, **kw))
+            t_o = median_ms(lambda: old_server_route(
+                args[0], ring, slot, args[2], args[3], **okw))
+            bms, by = server_bound(D, A, arr=True, hit=far == "due",
+                                   buffered=kind == "fedbuff", flush=fl,
+                                   fired=nf)
+            key = f"{tag}{'_cascade' if nf else ''}"
+            res[key] = dict(ms=t_k, plain_ms=t_p, old_route_ms=t_o,
+                            bound_ms=bms, bound_by=by)
+            print(f"phase kernels: server_apply tick {key} ({kind}, far "
+                  f"{far}, flush {fl}, fired {nf}) D={D} A={A}: ms={t_k} "
+                  f"plain_ms={t_p} old_route_ms={t_o} bound_ms={bms} ({by})")
+    m = res["main"]
+    return dict(ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+                bound_by=m["bound_by"], old_route_ms=m["old_route_ms"],
+                server_ticks=res)
 
 
 def phase_kernels(dev, logs):
@@ -490,11 +763,14 @@ def phase_kernels(dev, logs):
     floor_ms = median_ms(lambda: torch.cuda._sleep(0))
     print(f"phase kernels: launch floor (empty kernel, 10-call graph) "
           f"ms={floor_ms}; bucket_apply ms={ms}")
-    out.append(dict(name="bucket_apply", route="cuda",
-                    source="src/repro_torch/csrc/tick_fused.cu",
-                    replaces="src/repro/kernels/tick_fused/kernel.py:78",
-                    max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                    bound_by=by, library_ms=lms, launch_floor_ms=floor_ms))
+    row1 = dict(name="bucket_apply", route="cuda",
+                source="src/repro_torch/csrc/tick_fused.cu",
+                replaces="src/repro/kernels/tick_fused/kernel.py:78",
+                max_abs_err=err, ms_bucket_apply=ms,
+                plain_ms_bucket_apply=pms, bound_ms_bucket_apply=bms,
+                library_ms=lms, launch_floor_ms=floor_ms)
+    row1.update(server_step_kernel(dev, D, B, L, g))
+    out.append(row1)
 
     # -- tick_deliver ------------------------------------------------------
     w, U, bc_v = randn(C, D), randn(C, D), randn(B, D)
@@ -1080,6 +1356,151 @@ def phase_scenarios(dev, X, y, kw):
     return path_counts, fps
 
 
+# most ticks of a run whose server steps phase server_step records
+SERVER_TICKS = 300
+
+
+def record_server_steps(eng, dmod, rounds: int, ticks: int) -> list:
+    """Advance the device engine ``eng`` through ``rounds`` rounds, at
+    most ``ticks`` ticks, with its
+    ``server_apply`` wrapped: a copy of each call's operands is kept (the
+    whole ring and overflow bucket the slot and rows are views of), then
+    the call goes on as usual."""
+    rec = []
+    orig = dmod.server_apply
+
+    def recorder(v, due, dec, has_arr, **kw):
+        # the ring [L, A, D] whose slot ``due`` is
+        root = due if due._base is None else due._base
+        ring = root.reshape(-1, *due.shape)
+        slot = (due.data_ptr() - root.data_ptr()) // (4 * due.numel())
+        rec.append(dict(
+            v=v.clone(), ring=ring.clone(), slot=int(slot), dec=dec.clone(),
+            has_arr=has_arr.clone(),
+            **{k: (None if kw[k] is None else kw[k].clone())
+               for k in ("ovf", "ovf_hit", "buf", "flush", "bc_v",
+                         "fired")}))
+        return orig(v, due, dec, has_arr, **kw)
+
+    dmod.server_apply = recorder
+    try:
+        eng.segment(target_k=rounds, tick_limit=ticks)
+    finally:
+        dmod.server_apply = orig
+    return rec
+
+
+def prep_server_step(r, stratified: bool) -> dict:
+    """A copy of a recorded step's operands (ring [L, A, D], overflow
+    bucket [Q, A, D]) to run once (in place); under FedAsync with the
+    plain ring and overflow bucket beside them, all +0.0, which the
+    separate-launch route also resets."""
+    import torch
+    c = {k: (t if t is None or isinstance(t, int) else t.clone())
+         for k, t in r.items()}
+    if stratified:
+        L, _, D = r["ring"].shape
+        dev = r["v"].device
+        c["plain_ring"] = torch.zeros((L, D), device=dev)
+        c["plain_ovf"] = (None if r["ovf"] is None else
+                          torch.zeros((r["ovf"].shape[0], D), device=dev))
+    return c
+
+
+def run_new_step(c):
+    """The kernel's step on ``prep_server_step``'s copy; (v', ring, ovf,
+    buf, bc_v), the last four written in place."""
+    from repro_torch.kernels.tick_fused import server_apply
+    v2 = server_apply(c["v"], c["ring"][c["slot"]], c["dec"], c["has_arr"],
+                      reset=True, ovf=c["ovf"], ovf_hit=c["ovf_hit"],
+                      buf=c["buf"], flush=c["flush"], bc_v=c["bc_v"],
+                      fired=c["fired"])
+    return v2, c["ring"], c["ovf"], c["buf"], c["bc_v"]
+
+
+def run_old_step(c):
+    """The separate-launch route on ``prep_server_step``'s copy; the same
+    tuple, new tensors."""
+    return old_server_route(
+        c["v"], c["ring"], c["slot"], c["dec"], c["has_arr"], ovf=c["ovf"],
+        ovf_hit=c["ovf_hit"], buf=c["buf"], flush=c["flush"],
+        bc_v=c["bc_v"], fired=c["fired"], plain_ring=c.get("plain_ring"),
+        plain_ovf=c.get("plain_ovf"))
+
+
+def phase_server_step(dev, X, y, kw):
+    """Phase 0: the server step on real ticks.  The device engine runs
+    the main run and scenarios (a) and (b), at most SERVER_TICKS ticks
+    each (in-kernel noise), with each server step's operands recorded; then
+    each recorded step goes through the kernel and through the
+    separate-launch route (``old_server_route``) on copies: v' and every
+    row bit for bit alike, and the device operations of each route a
+    tick counted with ``torch.profiler`` (kernels, copies and fills
+    between the probes around the route's steps of one tick kind, in one
+    session a run: ``device_ops``), by tick kind.
+    Fails unless the kernel's route is one device operation a tick.  Runs
+    first, before any other profiler session of the process.  Returns the
+    counts."""
+    from repro_torch.cohort import device as dmod
+
+    m = MAIN
+    runs = [("main", dict(block=m["block"]), m["rounds"])]
+    runs += [(sc["tag"], scenario_kw(sc), sc["rounds"]) for sc in SCENARIOS]
+    out = {}
+    for tag, extra, rounds in runs:
+        sim = make_sim(dev, X, y, dp_rng="in_kernel", **extra, **kw)
+        eng = sim.engine
+        rec = record_server_steps(eng, dmod, rounds, SERVER_TICKS)
+        strat = eng.strategy.stratified
+        kinds = {}
+        for r in rec:
+            nf = 0 if r["bc_v"] is None else int(r["fired"].sum())
+            key = (f"arr={int(r['has_arr'])} fired={nf}"
+                   + (f" hit={int(r['ovf_hit'].any())}"
+                      if r["ovf"] is not None else "")
+                   + (f" flush={int(r['flush'])}" if r["buf"] is not None
+                      else ""))
+            kinds.setdefault(key, []).append(r)
+        for r in rec:
+            new = run_new_step(prep_server_step(r, strat))
+            old = run_old_step(prep_server_step(r, strat))
+            for name, a, b in zip(("v", "ring", "ovf", "buf", "bc_v"), new,
+                                  old):
+                if a is not None and not bits_equal(a, b):
+                    fail(f"phase server_step {tag}: the kernel's {name} "
+                         f"differs from the separate-launch route's")
+        routes = (("new", run_new_step), ("old", run_old_step))
+        runs = [((lambda rs=rs: [prep_server_step(r, strat) for r in rs]),
+                 (lambda pre, step=step: [step(c) for c in pre]))
+                for rs in kinds.values() for _, step in routes]
+        counts, lost = device_ops(runs, f"phase server_step {tag}")
+        per = {}
+        for i, (key, rs) in enumerate(kinds.items()):
+            cnt = {route: counts[2 * i + j]
+                   for j, (route, _) in enumerate(routes)}
+            per[key] = dict(ticks=len(rs),
+                            new=sum(cnt["new"].values()) / len(rs),
+                            old=sum(cnt["old"].values()) / len(rs),
+                            old_ops=cnt["old"], new_ops=cnt["new"])
+            if per[key]["new"] != 1.0:
+                fail(f"phase server_step {tag} {key}: {per[key]['new']} "
+                     f"device operations a tick through the kernel: "
+                     f"{cnt['new']}")
+        n = len(rec)
+        mean_old = sum(p["old"] * p["ticks"] for p in per.values()) / n
+        print(f"phase server_step {tag}: {n} ticks recorded (F={eng.F}, "
+              f"strategy={eng.strategy.kind}); kernel route bit for bit the "
+              f"separate-launch route on every tick; device operations a "
+              f"tick: kernel 1, separate-launch route {mean_old} on average "
+              f"(one profiler session, {lost} discarded); by tick "
+              f"kind: " + json.dumps(
+                  {k: {f: p[f] for f in ("ticks", "new", "old", "old_ops")}
+                   for k, p in per.items()}))
+        out[tag] = dict(ticks=n, new=1.0, old=mean_old, kinds=per)
+        del sim, eng, rec
+    return out
+
+
 def scenario_kw(sc):
     """The scenario, strategy and block of one of ``SCENARIOS``."""
     import dataclasses
@@ -1230,6 +1651,10 @@ def phase_host_engine(dev, X, y, kw, main_fp, scenario_fps):
                 fail(f"host_engine main: kernels {missing} not launched")
         if counts["cohort_clip_noise_prng"]:
             fail(f"host_engine {tag}: launched the in-kernel noise")
+        applies = int(res["telemetry"].ops["bucket_applies"])
+        if counts["bucket_apply"] != applies:
+            fail(f"host_engine {tag}: {counts['bucket_apply']} server-step "
+                 f"launches for {applies} applies")
         same_run(fingerprint(sim, res), want, f"host_engine {tag}")
         tel = res["telemetry"]
         print(f"phase host_engine {tag}: C={sim.engine.C} D={sim.engine.D} "
@@ -1237,7 +1662,8 @@ def phase_host_engine(dev, X, y, kw, main_fp, scenario_fps):
               f"wall_s={wall} ms_per_tick={1e3 * wall / tel.ticks} "
               f"messages={tel.messages} far_messages={tel.far_messages} "
               f"ops={tel.ops} losses={[h['loss'] for h in res['history']]}"
-              f" wall_phases={tel.wall} launches={counts} bitwise against "
+              f" wall_phases={tel.wall} launches={counts} server-step "
+              f"launches per apply: 1 ({applies} applies) bitwise against "
               f"the device engine: yes")
     missing = [k for k in HOST_PATH if total[k] <= 0]
     if missing:
@@ -2373,14 +2799,13 @@ def model_train_step(dev):
 
 def engine_rows(eng) -> dict:
     """The device engine's [*, D] f32 rows: held in its state, and at
-    most alive at once in a completion tick (the state, the tick's new v,
-    cleared ring and broadcast rows, the SGD block's copies of w and U
-    and one gradient, the sent rows, tick_scatter's w, U, ring rows and
-    block partials)."""
+    most alive at once in a completion tick (the state, the tick's new v
+    (the server step resets the ring and writes the broadcast rows in
+    place), the SGD block's copies of w and U and one gradient, the sent
+    rows, tick_scatter's w, U, ring rows and block partials)."""
     C, L, B, Q = eng.C, eng.L, eng.B, eng.Q
     held = 2 * C + 1 + L + B + Q
-    return dict(held=held, peak=held + 1 + L + B + 2 * C + 1 + C
-                + 2 * C + L + L)
+    return dict(held=held, peak=held + 1 + 2 * C + 1 + C + 2 * C + L + L)
 
 
 def model_cohort(dev):
@@ -2457,6 +2882,16 @@ def model_cohort(dev):
         counts = dict(launches.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         rows = engine_rows(sim.engine) if name == "device" else None
+        if name != "event":
+            # one server-step launch a tick (device) or an apply (host)
+            tel = res["telemetry"]
+            steps = (tel.ticks if name == "device"
+                     else int(tel.ops["bucket_applies"]))
+            if counts["bucket_apply"] != steps:
+                fail(f"phase model_train (b) {tag}: "
+                     f"{counts['bucket_apply']} server-step launches for "
+                     f"{steps} {'ticks' if name == 'device' else 'applies'}")
+            out.setdefault("server_steps", {})[tag] = steps
         if name == "event":
             tel = res["telemetry"]
             fp = {"ints": {"rounds": tel.rounds, "messages": tel.messages,
@@ -2490,6 +2925,8 @@ def model_cohort(dev):
         out["walls"][tag] = wall
         del sim, res
         torch.cuda.empty_cache()
+    print(f"phase model_train: (b) server-step launches: one a tick "
+          f"(device) or an apply (host): {out['server_steps']}")
     same_run(fps["host dp=False"], fps["device dp=False"],
              "phase model_train (b) without DP")
     same_run(fps["host dp=True"], fps["device dp=True operand"],
@@ -2521,8 +2958,9 @@ def model_cohort(dev):
 def model_d_kernels(dev, C: int, D: int) -> dict:
     """Rows 1-5 at model D: each wrapper's output against its plain
     version slab by slab (bitwise, or the phase 1 limits), then the
-    median time of one launch and its bound.  Not counted as launches
-    of the path (the counts are read before)."""
+    median time of one launch and its bound (row 1: the server step,
+    beside ``bucket_apply`` alone and the separate-launch route).  Not
+    counted as launches of the path (the counts are read before)."""
     import torch
     from repro_torch import prng
     from repro_torch.analysis.salts import NOISE_SALT
@@ -2533,6 +2971,8 @@ def model_d_kernels(dev, C: int, D: int) -> dict:
                                                    counter_normals)
     from repro_torch.kernels.tick_fused import (bucket_apply,
                                                 bucket_apply_ref,
+                                                server_apply,
+                                                server_apply_ref,
                                                 tick_deliver,
                                                 tick_deliver_ref,
                                                 tick_scatter,
@@ -2571,9 +3011,49 @@ def model_d_kernels(dev, C: int, D: int) -> dict:
             fail(f"bucket_apply at D={D}: not bitwise at [{lo}, {hi})")
     del k
     lib = event_ms(lambda: torch.addmv(v, rows.T, dec, alpha=-1))
-    record("bucket_apply", event_ms(lambda: bucket_apply(v, rows, dec, fl)),
-           bound(f4 * 3 * D, 2 * D), lib=lib)
-    del v, rows
+    bare_ms = event_ms(lambda: bucket_apply(v, rows, dec, fl))
+    bare_bound, _ = bound(f4 * 3 * D, 2 * D)
+    del rows
+
+    # row 1 as the path runs it: the server step of phase (b)'s ticks (the
+    # paper's strategy, no far tier), the slot reset in place, and on a
+    # cascade tick v' into one fired broadcast row; against its twin slab
+    # by slab, then timed with and without the fired row beside the
+    # separate-launch route on the same operands
+    ring, bc = randn(L, 1, D), randn(B, D)
+    fired = torch.zeros(B, dtype=torch.bool, device=dev)
+    fired[1] = True
+    slot0, bc0 = ring[1].clone(), bc.clone()
+    k = server_apply(v, ring[1], dec, fl, reset=True, bc_v=bc, fired=fired)
+    zero = torch.zeros(1, device=dev).expand(1, MODEL_D_SLAB)
+    for lo, hi in slabs():
+        pbc = bc0[:, lo:hi].clone()
+        p = server_apply_ref(v[lo:hi], slot0[:, lo:hi].clone(), dec, fl,
+                             reset=True, bc_v=pbc, fired=fired)
+        if not (bits_equal(k[lo:hi], p) and bits_equal(bc[:, lo:hi], pbc)
+                and bits_equal(ring[1][:, lo:hi], zero[:, :hi - lo])):
+            fail(f"server_apply at D={D}: not bitwise at [{lo}, {hi})")
+    del k, slot0, bc0
+    times = {}
+    for nf in (0, 1):
+        kw = dict(bc_v=bc, fired=fired) if nf else {}
+        t_k = event_ms(lambda: server_apply(v, ring[1], dec, fl, reset=True,
+                                            **kw))
+        t_o = event_ms(lambda: old_server_route(v, ring, 1, dec, fl, **kw))
+        times[nf] = (t_k, t_o, server_bound(D, 1, arr=True, fired=nf))
+    record("bucket_apply", times[0][0], times[0][2], lib=lib)
+    out["bucket_apply"].update(
+        old_route_model_D_ms=times[0][1], ms_model_D_cascade=times[1][0],
+        bound_model_D_cascade_ms=times[1][2][0],
+        old_route_model_D_cascade_ms=times[1][1],
+        ms_model_D_bucket_apply=bare_ms,
+        bound_model_D_bucket_apply_ms=bare_bound)
+    print(f"phase model_train: server_apply at C={C} D={D}: ms={times[0][0]} "
+          f"(cascade {times[1][0]}) bound_ms={times[0][2][0]} (cascade "
+          f"{times[1][2][0]}) old_route_ms={times[0][1]} (cascade "
+          f"{times[1][1]}); bucket_apply alone ms={bare_ms} bound_ms="
+          f"{bare_bound}")
+    del v, ring, bc
 
     # tick_deliver: row 0 takes broadcast 1, row 1 keeps w
     w, U, bc_v = randn(C, D), randn(C, D), randn(B, D)
@@ -3442,14 +3922,15 @@ def main() -> int:
     dev = resolve_device(None)
 
     t0 = time.perf_counter()
+    X, y, kw = main_inputs()
+    server_ops = phase_server_step(dev, X, y, kw)
+    print(f"phase server_step: wall_s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
     kernels = phase_kernels(dev, logs)
     print(f"phase kernels: wall_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     phase_census(dev)
     print(f"phase census: wall_s={time.perf_counter() - t0}")
-    t0 = time.perf_counter()
-    X, y, kw = main_inputs()
-    print(f"phase main: setup_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     counts, main_fp = phase_main(dev, X, y, kw)
     print(f"phase main: wall_s={time.perf_counter() - t0}")
@@ -3528,6 +4009,12 @@ def main() -> int:
             k["launches_main"] = counts[k["name"]]
         if k["name"] in HOST_PATH:
             k["launches_host"] = host_counts[k["name"]]
+        if k["name"] == "bucket_apply":
+            # the server step's device operations a tick (phase
+            # server_step): the kernel's route and the separate-launch one
+            k["server_ops_per_tick"] = {
+                tag: {"kernel": r["new"], "separate_launch_route": r["old"]}
+                for tag, r in server_ops.items()}
         if k["name"] == "clip_accumulate":
             k.update(dp_split)
         if k["name"] in TRAIN_PATH:

@@ -10,8 +10,11 @@ noise, and prints one ``walls LABEL ...`` line per run: the wall, ms
 per tick, and the CUDA-event spans of the round-completion noise calls
 (sum, median, first, max).  Then the DP round of ``chip_smoke.py``
 (``dp_sgd_round`` over the main data), whole and in its microbatches,
-three calls each (the first carries the one-time set-up).  The spans include any time the card waits
-for the host inside the call.  To compare two commits, unpack the other
+three calls each (the first carries the one-time set-up).  Last, the
+device-engine runs of ``chip_smoke.py`` phase 13 (b) (mamba2-780m at
+``TRAIN_COHORT``'s depth, C 2, three rounds), without DP and with
+in-kernel noise, three times each.  The spans include any time the card
+waits for the host inside the call.  To compare two commits, unpack the other
 one into a directory that ``.gitignore`` lists and run both in one call,
 in turns (parent, change, change, parent); each run is its own process.
 """
@@ -62,7 +65,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    _build.build_all(["tick_fused", "cohort_dp", "dp_clip"])
+    _build.build_all(["tick_fused", "cohort_dp", "dp_clip", "ssd_scan"])
     dev = torch.device("cuda")
     X, y, kw = cs.main_inputs()
 
@@ -115,7 +118,45 @@ def main() -> int:
             walls.append(time.perf_counter() - t0)
         print(f"walls {label} dp_round microbatch={mb}: walls_s={walls}",
               flush=True)
+    del batch, params
+    model_cohort_walls(cs, dev, label)
     return 0
+
+
+def model_cohort_walls(cs, dev, label: str) -> None:
+    """Phase 13 (b)'s device-engine runs, three times each."""
+    import torch
+    import repro_torch as rt
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core import BatchModelTask
+    from repro_torch.data import SeedAddressedBatcher
+    from repro_torch.models import init_params
+    tc = cs.TRAIN_COHORT
+    cfg = get_config(tc["arch"])
+    if tc["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=tc["layers"])
+    params = init_params(cfg, prng.PRNGKey(tc["seed"]), torch.float32,
+                         device=dev)
+    batcher = SeedAddressedBatcher(cfg, batch_size=tc["B"], seq_len=tc["S"],
+                                   seed=tc["seed"], device=dev)
+    kw = dict(n_clients=tc["C"], sizes_per_client=tc["sizes"],
+              round_stepsizes=tc["etas"], d=tc["d"], seed=tc["seed"],
+              speeds=tc["speeds"], device=dev)
+    for rep in range(3):
+        for dp, rng in ((False, "operand"), (True, "in_kernel")):
+            task = BatchModelTask(cfg, params, batcher,
+                                  dp_clip=tc["clip"] if dp else 0.0,
+                                  dp_sigma=tc["sigma"] if dp else 0.0)
+            sim = rt.DeviceCohortSimulator(task, latency=tc["latency"],
+                                           block=tc["block"], dp_rng=rng,
+                                           **kw)
+            res, wall = cs.timed_run(sim, tc["rounds"], 1)
+            print(f"walls {label} model_cohort device dp={dp} {rng} "
+                  f"rep{rep}: wall_s={wall} "
+                  f"ticks={res['telemetry'].ticks}", flush=True)
+            del sim, res, task
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -21,8 +21,10 @@ One protocol tick is two phases:
    **one host sync per tick**.
 2. **Float phase.**  The host enqueues only the ``[C, D]`` work the
    predicates call for — the fused kernels of ``repro_torch.kernels``
-   (``bucket_apply`` every tick, reading its flag on the device: the
-   arrival flag, or FedBuff's flush flag; ``tick_deliver`` on delivery
+   (``server_apply`` every tick: the server's whole step in one launch,
+   its flags read on the device, the ring slot, the due overflow row,
+   FedBuff's buffer and the fired broadcast rows written in place;
+   ``tick_deliver`` on delivery
    ticks; the SGD block on block ticks; ``cohort_clip_noise`` or
    ``cohort_clip_noise_prng`` + ``tick_scatter`` on completion ticks;
    the far-tier group sums on ticks that route updates past the ring)
@@ -58,7 +60,7 @@ from repro_torch.core.tasks import validate_dp_knobs
 from repro_torch.devices import resolve_device
 from repro_torch.kernels.cohort_dp import (cohort_clip_noise,
                                            cohort_clip_noise_prng)
-from repro_torch.kernels.tick_fused import (bucket_apply, tick_deliver,
+from repro_torch.kernels.tick_fused import (server_apply, tick_deliver,
                                             tick_scatter)
 from repro_torch.scenarios import (ScenarioPlan, get_scenario,
                                    legacy_latency_scenario)
@@ -380,51 +382,28 @@ class DeviceCohortEngine:
         self.host_syncs["tick"] += 1
 
         # ---- 2) float phase ---------------------------------------------
-        upd_vec, upd_kvec = st.upd_vec, st.upd_kvec
-        ovf_vec, ovf_kvec = st.ovf_vec, st.ovf_kvec
-        if far_tier:
-            # the due overflow entry, added before the ring slot: the
-            # reference's order (overflow + ring slot); no entry due
-            # gives +0.0, as the reference's no-pop branch does
-            hit_f = ovf_hit.to(F32)
-            any_hit = ovf_hit.any()
-            ovf_due = torch.where(any_hit, (st.ovf_vec * hit_f[:, None])
-                                  .sum(0), 0.0)
-            ovf_vec = torch.where(ovf_hit[:, None], 0.0, st.ovf_vec)
-            if strat.stratified:
-                kvec_ovf = torch.where(any_hit, (st.ovf_kvec * hit_f[
-                    :, None, None]).sum(0), 0.0)
-                ovf_kvec = torch.where(ovf_hit[:, None, None], 0.0,
-                                       st.ovf_kvec)
+        # the server's step in one launch: the due ring slot, after the
+        # due overflow entry (the reference's order; +0.0 where none is
+        # due), applied to v — under FedAsync each sender-k stratum decayed
+        # by its staleness, under FedBuff banked and applied on a flush —
+        # with the slot, the overflow row and the buffer reset in place
+        # and v' pushed into the fired broadcast rows in place.  v' is a
+        # new tensor: a model handed out as a view of v must not change.
+        # (FedAsync's upd_vec / ovf_vec stay all +0.0: nothing to reset.)
         if strat.stratified:
-            # FedAsync: decay each sender-k stratum of the due bucket by
-            # its staleness: R rows into one bucket_apply
-            kvec_due = upd_kvec[slot]
-            if far_tier:
-                kvec_due = kvec_ovf + kvec_due
-            v = bucket_apply(st.v, kvec_due, self._dec_rows[sk0 & (R - 1)],
-                             has_arr)
-            buf_vec = st.buf_vec
+            due, ovf = st.upd_kvec[slot], st.ovf_kvec
+            dec = self._dec_rows[sk0 & (R - 1)]
         else:
-            arr_due = upd_vec[slot]
-            if far_tier:
-                arr_due = ovf_due + arr_due
-            if strat.buffered:
-                buf_vec = torch.where(has_arr, st.buf_vec + arr_due,
-                                      st.buf_vec)
-                v = bucket_apply(st.v, buf_vec[None, :], self._ones1, flush)
-                buf_vec = torch.where(flush, 0.0, buf_vec)
-            else:
-                v = bucket_apply(st.v, arr_due[None, :], self._ones1,
-                                 has_arr)
-                buf_vec = st.buf_vec
-        upd_vec = upd_vec.clone()
-        upd_vec[slot] = 0.0
-        if strat.stratified:
-            upd_kvec = upd_kvec.clone()
-            upd_kvec[slot] = 0.0
-        bc_v = (torch.where(fired[:, None], v[None, :], st.bc_v)
-                if preds.cascades else st.bc_v)
+            due, ovf = st.upd_vec[slot:slot + 1], st.ovf_vec[:, None]
+            dec = self._ones1
+        v = server_apply(
+            st.v, due, dec, has_arr, reset=True,
+            ovf=ovf if far_tier else None,
+            ovf_hit=ovf_hit if far_tier else None,
+            buf=st.buf_vec if strat.buffered else None, flush=flush,
+            bc_v=st.bc_v if preds.cascades else None, fired=fired)
+        upd_vec, upd_kvec, bc_v = st.upd_vec, st.upd_kvec, st.bc_v
+        ovf_vec, ovf_kvec, buf_vec = st.ovf_vec, st.ovf_kvec, st.buf_vec
         w = (tick_deliver(st.w, st.U, bc_v, best, take, eta)
              if preds.deliver_rows else st.w)
         U = st.U

@@ -23,8 +23,9 @@ Ordering within a tick mirrors the event simulator:
 
 The ``[C, D]`` float work goes through the port's kernel wrappers with
 the operands the device engine (``repro_torch.cohort.device``) gives
-them — ``bucket_apply`` for the server apply, FedAsync's decay and
-FedBuff's flush; ``tick_deliver`` for ISRRECEIVE; ``cohort_clip_noise``
+them — ``server_apply`` for the server's step (the apply, FedAsync's
+decay, FedBuff's bank and flush), one launch a tick that has arrivals;
+``tick_deliver`` for ISRRECEIVE; ``cohort_clip_noise``
 (no weighted sum) for the round-completion DP; one ``tick_scatter`` per
 completion tick for the near groups' sums and the rows' settle; one
 ``[V, C] @ [C, D]`` product for the far groups — so on the card the two
@@ -55,7 +56,7 @@ from repro_torch.cohort.state import (FRAC_BITS, BroadcastRing, CohortState,
 from repro_torch.core.strategies import get_strategy, ring_decay
 from repro_torch.core.tasks import validate_dp_knobs
 from repro_torch.kernels.cohort_dp import cohort_clip_noise
-from repro_torch.kernels.tick_fused import (bucket_apply, tick_deliver,
+from repro_torch.kernels.tick_fused import (server_apply, tick_deliver,
                                             tick_scatter)
 from repro_torch.scenarios import ScenarioPlan, get_scenario
 from repro_torch.telemetry import (STALE_BINS, PhaseTimer, build_report,
@@ -140,6 +141,10 @@ class CohortEngine:
         R = self.R = next_pow2(self.d_gate + 2)
         self._ones1 = torch.ones((1,), dtype=F32, device=dev)
         self._true = torch.ones((), dtype=torch.bool, device=dev)
+        self._false = torch.zeros((), dtype=torch.bool, device=dev)
+        # the far bucket as server_apply's one overflow entry: due or not
+        self._hit1 = torch.ones((1,), dtype=torch.bool, device=dev)
+        self._miss1 = torch.zeros((1,), dtype=torch.bool, device=dev)
         self._zero_d = torch.zeros((self.D,), dtype=F32, device=dev)
         self._ar_R = torch.arange(R, dtype=torch.int64, device=dev)
         if self.strategy.stratified:
@@ -148,7 +153,8 @@ class CohortEngine:
                 for s in range(R)])
             self._zero_rd = torch.zeros((R, self.D), dtype=F32, device=dev)
         if self.strategy.buffered:
-            self._buf_vec = self._zero_d
+            # written in place by server_apply: the engine's own tensor
+            self._buf_vec = torch.zeros((self.D,), dtype=F32, device=dev)
             self._buf_cnt = 0
         far_vals = (self._plan.far_tick_values if self._plan is not None
                     else ())
@@ -283,36 +289,38 @@ class CohortEngine:
             self._finish_rounds(done, eta)
 
     def _apply_due(self, far, near, n_arrivals: int) -> None:
-        """The server's apply of this tick's bucket through
-        ``bucket_apply``.  With a far tier the device engine adds the
-        due overflow entry to the ring slot, each +0.0 where empty, so
-        this engine forms the same ``far + near`` (the reference's host
-        engine adds only the parts present)."""
-        st, strat = self.state, self.strategy
+        """The server's apply of this tick's bucket: one ``server_apply``
+        with the device engine's operands — the near bucket as the due
+        slot and, with a far tier, the far bucket as the one overflow
+        entry, each 0.0 where absent, so the sum is the device engine's
+        ``(far + 0.0) + near`` (the reference's host engine adds only the
+        parts present).  The buckets are popped already: nothing is reset
+        but FedBuff's buffer."""
+        st, strat, D = self.state, self.strategy, self.D
+        A = self.R if strat.stratified else 1
+        zero = self._zero_rd if strat.stratified else self._zero_d[None, :]
+        kw = {}
         if self._far_tier:
-            zero = self._zero_rd if strat.stratified else self._zero_d
-            total = ((far if far is not None else zero)
-                     + (near if near is not None else zero))
+            due = zero if near is None else near.reshape(A, D)
+            kw.update(ovf=(zero if far is None else far.reshape(A, D))[None],
+                      ovf_hit=self._miss1 if far is None else self._hit1)
         else:
-            total = near if near is not None else far
+            due = (near if near is not None else far).reshape(A, D)
         if strat.stratified:
             # FedAsync: decay each sender-k stratum by its staleness
             # against the pre-cascade server_k
-            st.v = bucket_apply(st.v, total,
-                                self._dec_rows[st.server_k & (self.R - 1)],
-                                self._true)
-        elif strat.buffered:
-            # FedBuff: bank this tick's arrivals, flush every B
-            self._buf_vec = self._buf_vec + total
-            self._buf_cnt += n_arrivals
-            if self._buf_cnt >= strat.buffer_size:
-                st.v = bucket_apply(st.v, self._buf_vec[None, :],
-                                    self._ones1, self._true)
-                self._buf_vec = self._zero_d
-                self._buf_cnt = 0
+            dec = self._dec_rows[st.server_k & (self.R - 1)]
         else:
-            st.v = bucket_apply(st.v, total[None, :], self._ones1,
-                                self._true)
+            dec = self._ones1
+        if strat.buffered:
+            # FedBuff: bank this tick's arrivals, flush every B
+            self._buf_cnt += n_arrivals
+            flush = self._buf_cnt >= strat.buffer_size
+            kw.update(buf=self._buf_vec,
+                      flush=self._true if flush else self._false)
+            if flush:
+                self._buf_cnt = 0
+        st.v = server_apply(st.v, due, dec, self._true, **kw)
 
     def _clip_noise(self, U, eta, done, t: int):
         """Round-completion DP of the finishing rows: the device

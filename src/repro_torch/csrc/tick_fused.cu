@@ -1,5 +1,6 @@
-// Fused device-tick kernels for Hopper (sm_90a): server bucket apply,
-// ISRRECEIVE delivery gather, and the round-completion ring scatter.
+// Fused device-tick kernels for Hopper (sm_90a): the server's step of a
+// tick, the ISRRECEIVE delivery gather, and the round-completion ring
+// scatter.
 //
 // Replaces the Pallas kernels of repro/kernels/tick_fused/kernel.py
 // (_bucket_apply_kernel, _tick_deliver_kernel, _tick_scatter_kernel).
@@ -10,6 +11,17 @@
 // terms that could flip a -0.0 sum) and keeps every reduction over
 // clients in a fixed order with no atomics, so two runs give the same
 // bits.
+//
+// server_apply is the server's whole step of a tick in one launch (the
+// bucket_apply of the reference, with everything the engine does around
+// it): it reads the due ring slot and the due overflow entry once, applies
+// them to v (decayed per sender-k stratum under FedAsync, banked and
+// flushed under FedBuff), resets the slot and the overflow row in place
+// and writes v' into the fired broadcast rows in place.  Its flags are
+// read on the device.  Each thread owns whole columns (16-byte groups
+// where every row is 16-byte aligned), so nothing crosses threads; a
+// grid-stride loop over at most a few blocks per SM spreads a model-sized
+// D over the card.
 //
 // tick_scatter runs on every completion tick (thousands of launches a
 // scenario run).  Its rows pass streams sent, w and (on done rows) U
@@ -26,11 +38,10 @@
 // Rounding: every product and sum is an explicit round-to-nearest
 // intrinsic (__fmul_rn / __fadd_rn / __fsub_rn), which nvcc never
 // contracts into an FMA; the file is also built with -fmad=false.  So
-// bucket_apply (A == 1), tick_deliver and the w/U outputs of
-// tick_scatter round exactly like PyTorch's eager plain versions and
-// match them bit for bit; the scatter sums differ from torch.sum only
-// in their add order, which kernels/tick_fused/ref.py's
-// tick_scatter_twin repeats exactly.
+// server_apply, tick_deliver and the w/U outputs of tick_scatter round
+// exactly like PyTorch's eager plain versions and match them bit for
+// bit; the scatter sums differ from torch.sum only in their add order,
+// which kernels/tick_fused/ref.py's tick_scatter_twin repeats exactly.
 //
 // Each extern "C" entry point launches on the caller's stream and
 // returns cudaGetLastError(); the Python wrapper raises if it is not 0.
@@ -54,25 +65,206 @@ __host__ __device__ constexpr int scatter_stage_floats(int KG, int ld) {
   return 3 * kScatterTileRows * ld + kScatterTileRows * (1 + KG);
 }
 
-// v'[d] = flag ? v[d] - sum_a rows[a, d] * dec[a] : v[d]
-// A == 1 scales the single row (rows[0] * dec[0], no 0.0 + x that would
-// flip a -0.0 row); A > 1 sums in ascending a.
-__global__ void bucket_apply_kernel(const float* __restrict__ v,
-                                    const float* __restrict__ rows,
-                                    const float* __restrict__ dec,
-                                    const int32_t* __restrict__ flag,
-                                    float* __restrict__ out, int A, int D) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= D) return;
-  const float vd = v[d];
-  if (*flag == 0) {
-    out[d] = vd;
-    return;
+// The operands of one server step.  due [A, D]: the due ring slot (A == 1,
+// or R sender-k strata under FedAsync); ovf [Q, A, D] with ovf_hit [Q]:
+// the overflow bucket and its due entry (null: no far tier); buf [D] with
+// flush: FedBuff's buffer (null: no buffer); bc [B, D] with fired [B]: the
+// broadcast rows (null: no cascade this tick).  reset: zero the slot and
+// the due overflow row after reading them.
+struct ServerStep {
+  const float* v;
+  float* due;
+  const float* dec;
+  const bool* has_arr;
+  float* ovf;
+  const bool* ovf_hit;
+  float* buf;
+  const bool* flush;
+  float* bc;
+  const bool* fired;
+  float* out;
+  long long D;
+  int A, Q, B, reset;
+};
+
+// W consecutive columns of one row: a 16-byte group (W == 4) or one
+// column (W == 1)
+template <int W>
+struct Cols {
+  float x[W];
+};
+
+template <int W>
+__device__ __forceinline__ Cols<W> load_cols(const float* p) {
+  Cols<W> r;
+  if constexpr (W == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    r.x[0] = t.x;
+    r.x[1] = t.y;
+    r.x[2] = t.z;
+    r.x[3] = t.w;
+  } else {
+    r.x[0] = *p;
   }
-  float c = __fmul_rn(rows[d], dec[0]);
-  for (int a = 1; a < A; ++a)
-    c = __fadd_rn(c, __fmul_rn(rows[(size_t)a * D + d], dec[a]));
-  out[d] = __fsub_rn(vd, c);
+  return r;
+}
+
+template <int W>
+__device__ __forceinline__ void store_cols(float* p, const Cols<W>& r) {
+  if constexpr (W == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(r.x[0], r.x[1], r.x[2],
+                                                r.x[3]);
+  else
+    *p = r.x[0];
+}
+
+template <int W>
+__device__ __forceinline__ void zero_cols(float* p) {
+  Cols<W> z;
+#pragma unroll
+  for (int k = 0; k < W; ++k) z.x[k] = 0.0f;
+  store_cols<W>(p, z);
+}
+
+// stratum a of the due bucket at column d: the due overflow entry's row
+// plus 0.0 (so -0.0 reads as +0.0, the reference's masked sum over the
+// overflow bucket; +0.0 when no entry is due), then the ring slot's row
+template <int W>
+__device__ __forceinline__ Cols<W> due_cols(const ServerStep& s, int hit,
+                                            int a, long long d) {
+  Cols<W> r = load_cols<W>(s.due + (long long)a * s.D + d);
+  if (s.ovf != nullptr) {
+    Cols<W> o;
+    if (hit >= 0) {
+      o = load_cols<W>(s.ovf + ((long long)hit * s.A + a) * s.D + d);
+#pragma unroll
+      for (int k = 0; k < W; ++k) o.x[k] = __fadd_rn(o.x[k], 0.0f);
+    } else {
+#pragma unroll
+      for (int k = 0; k < W; ++k) o.x[k] = 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < W; ++k) r.x[k] = __fadd_rn(o.x[k], r.x[k]);
+  }
+  return r;
+}
+
+// One server step over ngroups groups of W columns:
+//   due[a] = [ovf[hit, a] + 0.0 +] slot[a]
+//   FedBuff: buf' = has_arr ? buf + due[0] : buf;
+//            v' = flush ? v - buf' * dec[0] : v;  buf'' = flush ? 0 : buf'
+//   else:    v' = has_arr ? v - sum_a due[a] * dec[a] : v
+// The sum: A == 1 scales the single row (no 0.0 + x that would flip a
+// -0.0 row); A > 1 adds 0.0 + t_0 + t_1 + ... in ascending a, the order
+// of torch.sum over the strata.  Rows that the step does not need are not
+// read (the slot on a tick without arrivals); rows it resets are written
+// whatever the flags.
+template <int W>
+__global__ void __launch_bounds__(256) server_apply_kernel(ServerStep s,
+                                                           long long ngroups) {
+  __shared__ int s_hit;
+  if (s.ovf != nullptr && threadIdx.x < 32) {
+    // the first due overflow entry (the engine has at most one)
+    int found = -1;
+    for (int base = 0; base < s.Q && found < 0; base += 32) {
+      const int q = base + (int)threadIdx.x;
+      const unsigned m = __ballot_sync(0xffffffffu, q < s.Q && s.ovf_hit[q]);
+      if (m) found = base + __ffs(m) - 1;
+    }
+    if (threadIdx.x == 0) s_hit = found;
+  }
+  __syncthreads();
+  const int hit = s.ovf != nullptr ? s_hit : -1;
+  const bool arr = *s.has_arr;
+  const bool buffered = s.buf != nullptr;
+  const bool apply = buffered ? *s.flush : arr;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       g < ngroups; g += stride) {
+    const long long d = g * W;
+    const Cols<W> vd = load_cols<W>(s.v + d);
+    Cols<W> o = vd;
+    if (buffered) {
+      if (arr || apply) {
+        Cols<W> b = load_cols<W>(s.buf + d);
+        if (arr) {
+          const Cols<W> r = due_cols<W>(s, hit, 0, d);
+#pragma unroll
+          for (int k = 0; k < W; ++k) b.x[k] = __fadd_rn(b.x[k], r.x[k]);
+        }
+        if (apply) {
+          const float w0 = s.dec[0];
+#pragma unroll
+          for (int k = 0; k < W; ++k) {
+            o.x[k] = __fsub_rn(vd.x[k], __fmul_rn(b.x[k], w0));
+            b.x[k] = 0.0f;
+          }
+        }
+        store_cols<W>(s.buf + d, b);
+      }
+    } else if (apply) {
+      Cols<W> c{};
+      for (int a = 0; a < s.A; ++a) {
+        const Cols<W> r = due_cols<W>(s, hit, a, d);
+        const float wa = s.dec[a];
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          const float t = __fmul_rn(r.x[k], wa);
+          c.x[k] = a > 0 ? __fadd_rn(c.x[k], t)
+                         : (s.A == 1 ? t : __fadd_rn(0.0f, t));
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < W; ++k) o.x[k] = __fsub_rn(vd.x[k], c.x[k]);
+    }
+    store_cols<W>(s.out + d, o);
+    if (s.reset) {
+      for (int a = 0; a < s.A; ++a)
+        zero_cols<W>(s.due + (long long)a * s.D + d);
+      if (hit >= 0)
+        for (int a = 0; a < s.A; ++a)
+          zero_cols<W>(s.ovf + ((long long)hit * s.A + a) * s.D + d);
+    }
+    if (s.bc != nullptr)
+      for (int b = 0; b < s.B; ++b)
+        if (s.fired[b]) store_cols<W>(s.bc + (long long)b * s.D + d, o);
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        n <= 0)
+      n = 132;
+  }
+  return n;
+}
+
+bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// 16-byte groups when every row starts on a 16-byte boundary, else one
+// column a thread; at most 8 blocks of 256 threads per SM, each thread
+// walking its groups with the grid's stride
+int launch_server(const ServerStep& s, cudaStream_t stream) {
+  if (s.D <= 0) return 0;
+  const bool vec = s.D % 4 == 0 && aligned16(s.v) && aligned16(s.due) &&
+                   aligned16(s.ovf) && aligned16(s.buf) && aligned16(s.bc) &&
+                   aligned16(s.out);
+  const long long groups = vec ? s.D / 4 : s.D;
+  const long long want = (groups + kThreads - 1) / kThreads;
+  const unsigned blocks =
+      (unsigned)(want < 8LL * sm_count() ? want : 8LL * sm_count());
+  if (vec)
+    server_apply_kernel<4><<<blocks, kThreads, 0, stream>>>(s, groups);
+  else
+    server_apply_kernel<1><<<blocks, kThreads, 0, stream>>>(s, groups);
+  return (int)cudaGetLastError();
 }
 
 // w'[c] = take[c] ? bc_v[best[c]] - eta[c] * U[c] : w[c]; one block per
@@ -309,13 +501,25 @@ int launch_scatter(const float* sent, const float* w, const float* U,
 
 extern "C" {
 
+// bucket_apply: the server step with only the apply (no slot or overflow
+// reset, no buffer, no broadcast rows): v' = v - sum_a rows[a] * dec[a]
+// where *flag
 int tf_bucket_apply(const float* v, const float* rows, const float* dec,
-                    const int32_t* flag, float* out, int A, int D,
+                    const bool* flag, float* out, int A, long long D,
                     cudaStream_t stream) {
-  if (D == 0) return 0;
-  bucket_apply_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      v, rows, dec, flag, out, A, D);
-  return (int)cudaGetLastError();
+  ServerStep s{v,       const_cast<float*>(rows), dec, flag, nullptr, nullptr,
+               nullptr, nullptr, nullptr, nullptr, out, D, A, 0, 0, 0};
+  return launch_server(s, stream);
+}
+
+int tf_server_apply(const float* v, float* due, const float* dec,
+                    const bool* has_arr, float* ovf, const bool* ovf_hit,
+                    float* buf, const bool* flush, float* bc,
+                    const bool* fired, float* out, int A, int Q, int B,
+                    long long D, int reset, cudaStream_t stream) {
+  ServerStep s{v,     due,   dec, has_arr, ovf, ovf_hit, buf, flush,
+               bc,    fired, out, D,       A,   Q,       B,   reset};
+  return launch_server(s, stream);
 }
 
 int tf_tick_deliver(const float* w, const float* U, const float* bc_v,

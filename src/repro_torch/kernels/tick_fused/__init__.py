@@ -1,4 +1,5 @@
-"""Fused device-tick kernels: delivery gather, bucket apply, ring scatter.
+"""Fused device-tick kernels: the server step, delivery gather, ring
+scatter.
 
 CUDA kernels over the [C, D] client block (``csrc/tick_fused.cu``,
 launched by ``kernel.py``) with plain PyTorch versions (``ref.py``;
@@ -6,15 +7,17 @@ launched by ``kernel.py``) with plain PyTorch versions (``ref.py``;
 it gives the kernel's bits); ``ops.py`` dispatches by the tensors'
 device.
 """
-from repro_torch.kernels.tick_fused.ops import (bucket_apply, tick_deliver,
-                                                tick_scatter)
+from repro_torch.kernels.tick_fused.ops import (bucket_apply, server_apply,
+                                                tick_deliver, tick_scatter)
 from repro_torch.kernels.tick_fused.ref import (bucket_apply_ref,
+                                                server_apply_ref,
                                                 tick_deliver_ref,
                                                 tick_scatter_ref,
                                                 tick_scatter_twin)
 
 __all__ = [
-    "bucket_apply", "tick_deliver", "tick_scatter",
-    "bucket_apply_ref", "tick_deliver_ref", "tick_scatter_ref",
+    "bucket_apply", "server_apply", "tick_deliver", "tick_scatter",
+    "bucket_apply_ref", "server_apply_ref", "tick_deliver_ref",
+    "tick_scatter_ref",
     "tick_scatter_twin",
 ]

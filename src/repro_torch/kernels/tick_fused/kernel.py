@@ -3,7 +3,9 @@
 Replaces the Pallas kernels of the reference's
 ``repro/kernels/tick_fused/kernel.py``:
 
-* ``bucket_apply_kernel``  <- ``_bucket_apply_kernel`` (``bucket_apply_kernel``)
+* ``server_apply_kernel``  <- ``_bucket_apply_kernel``
+  (``bucket_apply_kernel``), redesigned as the server's whole step of a
+  tick; ``bucket_apply_kernel`` is the same kernel with only the apply
 * ``tick_deliver_kernel``  <- ``_tick_deliver_kernel`` (``tick_deliver_kernel``)
 * ``tick_scatter_kernel``  <- ``_tick_scatter_kernel`` (``tick_scatter_kernel``)
 
@@ -11,7 +13,8 @@ All three are memory-bound f32 streams (see the source's note for the
 design).  Each launcher checks device, dtype, shape and contiguity,
 allocates its outputs, launches on PyTorch's current stream without
 synchronising, raises on a launch error, and counts the launch in
-``repro_torch.kernels.launches.LAUNCHES``.
+``repro_torch.kernels.launches.LAUNCHES`` (the server step under
+``"bucket_apply"``, the reference's name for it).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch
 from repro_torch import _build
 from repro_torch.kernels.launches import LAUNCHES
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _lib = None
 
 
@@ -30,31 +33,83 @@ def _tf():
     global _lib
     if _lib is None:
         lib = _build.load("tick_fused")
-        lib.tf_bucket_apply.argtypes = [_P] * 5 + [_I, _I, _P]
+        lib.tf_bucket_apply.argtypes = [_P] * 5 + [_I, _L, _P]
+        lib.tf_server_apply.argtypes = [_P] * 11 + [_I] * 3 + [_L, _I, _P]
         lib.tf_tick_deliver.argtypes = [_P] * 7 + [_I, _I, _P]
         lib.tf_scatter_blocks.argtypes = [_I]
         lib.tf_tick_scatter.argtypes = [_P] * 12 + [_I] * 4 + [_P]
-        for fn in (lib.tf_bucket_apply, lib.tf_tick_deliver,
+        for fn in (lib.tf_bucket_apply, lib.tf_server_apply,
+                   lib.tf_tick_deliver,
                    lib.tf_scatter_blocks, lib.tf_tick_scatter):
             fn.restype = _I
         _lib = lib
     return _lib
 
 
+def _flag(t, name, dev) -> None:
+    """A one-element bool tensor on ``dev``, read by the kernel there."""
+    if t.device != dev or t.dtype != torch.bool or t.numel() != 1:
+        raise ValueError(f"{name} must be one bool on {dev}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def bucket_apply_kernel(v, rows, dec, flag):
-    """v [D] f32, rows [A, D] f32, dec [A] f32, flag [1] int32 -> [D]."""
+    """v [D] f32, rows [A, D] f32, dec [A] f32, flag one bool -> [D]."""
     A, D = rows.shape
     dev = v.device
     _build.need(v, "v", torch.float32, (D,), dev)
     _build.need(rows, "rows", torch.float32, (A, D), dev)
     _build.need(dec, "dec", torch.float32, (A,), dev)
-    _build.need(flag, "flag", torch.int32, (1,), dev)
+    _flag(flag, "flag", dev)
     if A < 1:
         raise ValueError("need at least one bucket row")
     out = torch.empty_like(v)
     _build.check(_tf().tf_bucket_apply(
         v.data_ptr(), rows.data_ptr(), dec.data_ptr(), flag.data_ptr(),
         out.data_ptr(), A, D, _build.stream(dev)), "bucket_apply")
+    LAUNCHES["bucket_apply"] += 1
+    return out
+
+
+def server_apply_kernel(v, due, dec, has_arr, *, ovf=None, ovf_hit=None,
+                        reset=False, buf=None, flush=None, bc_v=None,
+                        fired=None):
+    """The server's step of a tick in one launch (``server_apply``'s
+    operands; the in-place ones must be contiguous: a copy would take the
+    writes)."""
+    A, D = due.shape
+    dev = v.device
+    _build.need(v, "v", torch.float32, (D,), dev)
+    _build.need(due, "due", torch.float32, (A, D), dev)
+    _build.need(dec, "dec", torch.float32, (A,), dev)
+    _flag(has_arr, "has_arr", dev)
+    if A < 1:
+        raise ValueError("need at least one bucket row")
+    Q = B = 0
+    if ovf is not None:
+        Q = ovf.shape[0]
+        _build.need(ovf, "ovf", torch.float32, (Q, A, D), dev)
+        _build.need(ovf_hit, "ovf_hit", torch.bool, (Q,), dev)
+    if buf is not None:
+        if A != 1:
+            raise ValueError("a banked buffer takes one bucket row")
+        _build.need(buf, "buf", torch.float32, (D,), dev)
+        _flag(flush, "flush", dev)
+    if bc_v is not None:
+        B = bc_v.shape[0]
+        _build.need(bc_v, "bc_v", torch.float32, (B, D), dev)
+        _build.need(fired, "fired", torch.bool, (B,), dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    out = torch.empty_like(v)
+    _build.check(_tf().tf_server_apply(
+        v.data_ptr(), due.data_ptr(), dec.data_ptr(), has_arr.data_ptr(),
+        ptr(ovf), ptr(ovf_hit if ovf is not None else None), ptr(buf),
+        ptr(flush if buf is not None else None), ptr(bc_v),
+        ptr(fired if bc_v is not None else None), out.data_ptr(), A, Q, B,
+        D, int(bool(reset)), _build.stream(dev)), "server_apply")
     LAUNCHES["bucket_apply"] += 1
     return out
 

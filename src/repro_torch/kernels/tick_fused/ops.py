@@ -11,9 +11,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.tick_fused.kernel import (bucket_apply_kernel,
+                                                   server_apply_kernel,
                                                    tick_deliver_kernel,
                                                    tick_scatter_kernel)
 from repro_torch.kernels.tick_fused.ref import (bucket_apply_ref,
+                                                server_apply_ref,
                                                 tick_deliver_ref,
                                                 tick_scatter_ref)
 
@@ -39,13 +41,26 @@ def no_backward(kernel: str, *tensors) -> None:
 
 
 def bucket_apply(v, rows, dec, flag):
-    """v [D], rows [A, D], dec [A], flag [] bool tensor -> [D]."""
+    """v [D], rows [A, D], dec [A], flag [] bool tensor -> [D]: the
+    ``server_apply`` kernel with only the apply."""
     if not on_cuda(v):
         return bucket_apply_ref(v, rows, dec, flag)
     # the kernel reads the flag on the device: no host round trip
     return bucket_apply_kernel(v.contiguous(), rows.contiguous(),
-                               dec.contiguous(),
-                               flag.reshape(1).to(torch.int32))
+                               dec.contiguous(), flag)
+
+
+def server_apply(v, due, dec, has_arr, *, ovf=None, ovf_hit=None,
+                 reset=False, buf=None, flush=None, bc_v=None, fired=None):
+    """The server's step of a tick (``server_apply_ref`` says what it
+    computes); returns v' and writes buf, the reset rows and bc_v in
+    place, so those must be contiguous.  One launch on the card, its
+    flags read there."""
+    kw = dict(ovf=ovf, ovf_hit=ovf_hit, reset=reset, buf=buf, flush=flush,
+              bc_v=bc_v, fired=fired)
+    if not on_cuda(v):
+        return server_apply_ref(v, due, dec, has_arr, **kw)
+    return server_apply_kernel(v, due, dec, has_arr, **kw)
 
 
 def tick_deliver(w, U, bc_v, best, take, eta):

@@ -26,6 +26,52 @@ def bucket_apply_ref(v, rows, dec, flag):
     return torch.where(flag, v - contrib, v)
 
 
+def server_apply_ref(v, due, dec, has_arr, *, ovf=None, ovf_hit=None,
+                     reset=False, buf=None, flush=None, bc_v=None,
+                     fired=None):
+    """The server's step of a tick, the plain twin of the
+    ``server_apply`` kernel: the same products and sums in the same
+    order, the same in-place writes.
+
+    v [D] server vector; due [A, D] the due ring slot (A == 1, or R
+    sender-k strata under FedAsync); dec [A] decay weights; has_arr []
+    bool.  With a far tier, ovf [Q, A, D] the overflow bucket and ovf_hit
+    [Q] its due entry (at most one): the entry's row plus 0.0 (the
+    reference's masked sum over the bucket, which turns -0.0 into +0.0;
+    +0.0 when none is due) is added before the slot's row.  FedBuff: buf
+    [D] banks the due row where ``has_arr`` and is applied and zeroed
+    where ``flush``; otherwise ``v - sum_a dec[a] * due[a]`` where
+    ``has_arr``, A == 1 scaling the single row and A > 1 adding
+    ``0.0 + t_0 + t_1 + ...`` in ascending a.  In place: buf; with
+    ``reset`` the slot and the due overflow row go to +0.0; bc_v [B, D]
+    takes v' in the rows where fired [B].  Returns v', a new tensor."""
+    A = due.shape[0]
+    rows = due
+    if ovf is not None:
+        q = ovf_hit.to(torch.int32).argmax().reshape(1)   # the first due
+        hit_rows = ovf.index_select(0, q)[0]
+        rows = torch.where(ovf_hit.any(), hit_rows + 0.0, 0.0) + due
+    if buf is not None:
+        banked = torch.where(has_arr, buf + rows[0], buf)
+        out = torch.where(flush, v - banked * dec[0], v)
+        buf.copy_(torch.where(flush, 0.0, banked))
+    else:
+        contrib = rows[0] * dec[0]
+        if A > 1:
+            contrib = 0.0 + contrib
+            for a in range(1, A):
+                contrib = contrib + rows[a] * dec[a]
+        out = torch.where(has_arr, v - contrib, v)
+    if reset:
+        due.zero_()
+        if ovf is not None:
+            ovf.masked_fill_(ovf_hit.reshape(-1, *[1] * (ovf.dim() - 1)),
+                             0.0)
+    if bc_v is not None:
+        bc_v.copy_(torch.where(fired[:, None], out[None, :], bc_v))
+    return out
+
+
 def tick_deliver_ref(w, U, bc_v, best, take, eta):
     """w, U [C, D]; bc_v [B, D]; best [C] ring index of the freshest
     eligible broadcast; take [C] bool; eta [C] round stepsizes ->

@@ -21,6 +21,12 @@ The row-streaming kernels (``tick_scatter``, ``clip_accumulate``) are
 also held bit for bit to their order-exact twins at ragged and at the
 paths' shapes, from 16-byte aligned and unaligned base pointers, and a
 block partial dropped from their finish pass must read above SUM_RTOL.
+The server's step (``server_apply``, one launch a tick) is held bit for
+bit to its twin ``server_apply_ref`` on the card, on every output and
+every row it writes in place, for the three strategies with and without
+a far tier, the flags set and clear and 0-2 fired broadcast rows, with
+-0.0 planted, at ragged, 16-byte-group and unaligned layouts and at a
+model-sized D.
 """
 import numpy as np
 import pytest
@@ -597,3 +603,90 @@ def test_sum_limit_catches_a_dropped_block_partial(dev, kernel):
         G = 3.0 * torch.randn((60000, 785), generator=g, device=dev)
         ratio = cs.clip_planted_drop(G, 0.1, clip_accumulate_ref(G, 0.1))
     assert ratio > 1.0
+
+
+def _server_case(dev, D, kind, far, arr, fl, nf, *, offset=0, seed=0):
+    """Engine-shaped operands of one server step on ``dev`` (``offset``
+    floats past a 16-byte boundary), -0.0 planted in v, the due slot, the
+    overflow rows and the buffer; returns (args, kwargs) for
+    ``server_apply`` and the tensors it writes in place."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A = 4 if kind == "fedasync" else 1
+    L, Q, B = 2, 2, 4
+
+    def rn(*shape):
+        t = torch.randn(int(np.prod(shape)) + offset, generator=g,
+                        device=dev)
+        return t[offset:].view(shape)
+
+    v, ring, ovf = rn(D), rn(L, A, D), rn(Q, A, D)
+    buf, bc = rn(D), rn(B, D)
+    z = min(D, 12)
+    v[:z:2] = -0.0
+    ring[1, :, 1:z:3] = -0.0
+    ovf[:, :, :z:3] = -0.0
+    buf[2:z:2] = -0.0
+    hit = torch.zeros(Q, dtype=torch.bool, device=dev)
+    if far == "due":
+        hit[1] = True
+    fired = torch.zeros(B, dtype=torch.bool, device=dev)
+    fired[1:1 + nf] = True
+    dec = (torch.rand(A, generator=g, device=dev) + 0.1 if A > 1
+           else torch.ones(1, device=dev))
+    kw = dict(reset=True, ovf=ovf if far != "none" else None,
+              ovf_hit=hit if far != "none" else None,
+              buf=buf if kind == "fedbuff" else None,
+              flush=torch.tensor(fl, device=dev),
+              bc_v=bc if nf else None, fired=fired)
+    args = (v, ring[1], dec, torch.tensor(arr, device=dev))
+    return args, kw, dict(ring=ring, ovf=ovf, buf=buf, bc=bc)
+
+
+def _server_cases():
+    for kind in ("paper", "fedasync", "fedbuff"):
+        for far in ("none", "due", "idle"):
+            for arr in (True, False):
+                for fl in ((True, False) if kind == "fedbuff" else (False,)):
+                    for nf in (0, 1, 2):
+                        yield kind, far, arr, fl, nf
+
+
+@pytest.mark.parametrize("D,offset", [(1, 0), (37, 0), (785, 0), (1024, 0),
+                                      (1024, 1), (4099, 2)])
+def test_server_apply_matches_its_twin_bitwise(dev, D, offset):
+    """Every case of ``tests/test_torch_server_apply.py``: the kernel's v'
+    and every row it writes in place bit for bit the twin's, run on
+    copies of the same operands; two launches give the same bits; one
+    launch a call, counted under ``bucket_apply``."""
+    from repro_torch.kernels import LAUNCHES, reset
+    from repro_torch.kernels.tick_fused import server_apply, server_apply_ref
+    for n, case in enumerate(_server_cases()):
+        outs = []
+        for fn in (server_apply, server_apply, server_apply_ref):
+            args, kw, inplace = _server_case(dev, D, *case, offset=offset,
+                                             seed=D + n)
+            reset()
+            outs.append((fn(*args, **kw), *inplace.values()))
+            assert LAUNCHES["bucket_apply"] == (fn is server_apply), case
+        for k1, k2, p in zip(*outs):
+            assert _bits_equal(k1, k2), case
+            assert _bits_equal(k1, p), case
+
+
+def test_server_apply_at_a_model_sized_D(dev):
+    """The paper's step with a far tier entry due and one fired broadcast
+    row at D = 2**28 + 3 (ragged: one column a thread, row offsets past
+    2**31 bytes), against the twin bit for bit."""
+    from repro_torch.kernels.tick_fused import server_apply, server_apply_ref
+    D = (1 << 28) + 3
+    case = ("paper", "due", True, False, 1)
+    args, kw, inplace = _server_case(dev, D, *case, seed=7)
+    twin = [t.clone() for t in (*args, *inplace.values())]
+    out = server_apply(*args, **kw)
+    v, due, dec, has_arr, ring, ovf, buf, bc = twin
+    pkw = dict(kw, ovf=ovf, bc_v=bc, buf=None)
+    ref = server_apply_ref(v, ring[1], dec, has_arr, **pkw)
+    assert _bits_equal(out, ref)
+    assert _bits_equal(inplace["ring"], ring)
+    assert _bits_equal(inplace["ovf"], ovf)
+    assert _bits_equal(inplace["bc"], bc)
