@@ -92,16 +92,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    ``python -m repro_torch.launch.serve`` for both archs, as users start
    it (exit 0).  Peak memory per model;
 13. ``model_train``: (a) one ``BatchModelTask`` step of gemma2-2b at full
-   width (f32, B 1, S 1024) through the plain cores under autograd, its
+   width (f32, B 1, S 1024) through the plain cores under autograd with
+   remat (each layer body and loss chunk checkpointed, the default) and
+   without, loss and every gradient bit for bit between the two, its
    loss against the kernels' route, U the step's gradient and w = w0 -
-   eta U bit for bit, with its wall, peak memory and the attention cores'
-   share of the gradient pass (CUDA events in autograd hooks); (b)
-   mamba2-780m (``TRAIN_COHORT``; D ~ 7.8e8 at its 48 layers, or at a
-   stated depth cut) for three rounds on the device engine without DP,
+   eta U bit for bit, with both walls and peaks and a warm gradient pass
+   of each with the attention cores' share (CUDA events in autograd
+   hooks: the first pass's forward and each call's backward, the remat
+   reruns timed apart); (b) mamba2-780m (``TRAIN_COHORT``): one round of
+   the device engine with DP at its 48 layers (D ~ 7.8e8) to see whether
+   its hungriest run fits the card, then, at 48 layers or at
+   ``cut_layers``, three rounds on
+   the device engine without DP (with remat and without, bit for bit),
    with operand noise and with in-kernel noise, the host engine bit for
-   bit against the first two, the event simulator against the first
-   (integers exact, ``EVENT_*_ATOL``), the engine's reckoned rows beside
-   the peak memory, one server-step launch a tick (device) or an apply
+   bit against the first and the operand one, the event simulator
+   against the first (integers exact, ``EVENT_*_ATOL``), the engine's
+   reckoned rows and the reckoning at 48 layers beside the peak memory,
+   one server-step launch a tick (device) or an apply
    (host); then rows 1-5 at that D against their plain versions slab by
    slab, each timed and bounded (row 1 as the server step, with and
    without a fired broadcast row, beside the separate-launch route); (c)
@@ -119,7 +126,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    phase 11's C = 64, traced, clean at its d; (d) ``python -m
    repro_torch.telemetry capture`` (device engine, ``mobile_diurnal``,
    DP) and ``convert``, and ``python -m repro_torch.analysis
-   src/repro_torch``, as users start them (exit 0, valid output); (e) a
+   src/repro_torch`` (PRNG-*, PURITY-*, STRUCT-*: 0 findings), as users
+   start them (exit 0, valid output); (e) a
    main run with its spans annotated under ``torch.profiler`` (CPU and
    CUDA activities): every span name among the profiler's events, and
    the CUDA time the profiler puts inside them; (f) the main run's wall
@@ -129,8 +137,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    and mamba2-780m over the four input shapes on both fake production
    meshes (16 processes, 8 at once): exit 0, no FAIL row, SKIP only where
    ``shape_is_applicable`` skips, every field of the reference's rows,
-   ``corrected_costs`` equal to the full-depth count; then ``python -m
-   repro_torch.launch.report``; (b) the dry run's accounting against the
+   ``corrected_costs`` equal to the full-depth count; gemma2-2b
+   ``train_4k``'s planned temp with remat beside the plan without it;
+   then ``python -m repro_torch.launch.report``; (b) the dry run's accounting against the
    card at full width and 2 layers (``DRYRUN_CHECK``): each step traced on
    a fake one-rank mesh and run for real on a one-rank NCCL mesh, argument
    bytes and flops (``FlopCounterMode``) equal, no collective in either,
@@ -264,11 +273,12 @@ DECODE_RTOL, DECODE_ATOL = 2e-2, 2e-3
 # reference's model tests (sizes [1, 1, 2], speeds [1.0, 0.8], block 4,
 # deterministic latency of 0.05 s, inside one tick), B 2, S 256, three
 # rounds; without DP, then with DP (per-step clip 1.0, sigma 8.0) once with
-# operand and once with in-kernel noise.  ``layers`` cuts its depth where
-# the device engine's rows do not fit the card (None: all 48).  (c) The
-# train driver as users start it.
+# operand and once with in-kernel noise, and without DP with remat off.
+# It runs at the config's 48 layers where one round of the device engine
+# with DP (its hungriest run) fits the card, else at ``cut_layers``.
+# (c) The train driver as users start it.
 TRAIN_STEP = dict(arch="gemma2-2b", B=1, S=1024, eta=0.01)
-TRAIN_COHORT = dict(arch="mamba2-780m", layers=32, C=2, d=1,
+TRAIN_COHORT = dict(arch="mamba2-780m", cut_layers=32, C=2, d=1,
                     sizes=[[1, 1, 2]] * 2, etas=[0.1, 0.08, 0.06],
                     speeds=[1.0, 0.8], block=4, latency=0.05, B=2, S=256,
                     rounds=3, seed=0, clip=1.0, sigma=8.0)
@@ -1594,17 +1604,16 @@ def loss_bits(losses):
 
 
 def same_run(host, device, what: str) -> None:
-    """Fail unless the host engine's fingerprint is the device engine's."""
+    """Fail unless the host engine's fingerprint is the device engine's
+    (or one device run's another's)."""
     bad = [k for k in device["ints"] if host["ints"][k] != device["ints"][k]]
     if bad:
-        fail(f"{what}: integer fields {bad} differ between the host and "
-             f"device engines")
+        fail(f"{what}: integer fields {bad} differ between the two runs")
     if loss_bits(host["losses"]) != loss_bits(device["losses"]):
-        fail(f"{what}: losses {host['losses']} vs device "
-             f"{device['losses']}")
+        fail(f"{what}: losses {host['losses']} vs {device['losses']}")
     for f in ("w", "U", "v"):
         if not bits_equal(host["blocks"][f], device["blocks"][f]):
-            fail(f"{what}: {f} differs between the host and device engines")
+            fail(f"{what}: {f} differs between the two runs")
 
 
 HOST_PATH = ("bucket_apply", "tick_deliver", "tick_scatter",
@@ -2672,11 +2681,16 @@ class core_timer:
     forward and, through tensor hooks, its backward: the backward starts
     when the gradient of the core's output arrives and ends when the last
     gradient of its inputs is made (autograd runs a core's backward nodes
-    together: they were made together).  ``ms()`` sums both, after a
-    sync."""
+    together: they were made together).  With remat on, a checkpointed
+    layer runs its body again in backward: those calls (set
+    ``in_backward`` before the backward starts) are timed apart as
+    reruns, and their outputs take no gradient (backward goes through
+    the first pass's graph), so each call's backward is counted once.
+    ``ms()`` gives (forward, rerun, backward) ms, after a sync."""
 
     def __init__(self, core):
-        self.core, self.fwd, self.bwd = core, [], []
+        self.core, self.fwd, self.rerun, self.bwd = core, [], [], []
+        self.in_backward = False
 
     def __call__(self, *args, **kw):
         import torch
@@ -2688,6 +2702,9 @@ class core_timer:
 
         e0 = event()
         out = self.core(*args, **kw)
+        if self.in_backward:
+            self.rerun.append((e0, event()))
+            return out
         self.fwd.append((e0, event()))
         y = out[0] if isinstance(out, tuple) else out
         ins = [a for a in args if torch.is_tensor(a) and a.requires_grad]
@@ -2703,36 +2720,70 @@ class core_timer:
         import torch
         torch.cuda.synchronize()
         f = sum(a.elapsed_time(b) for a, b in self.fwd)
-        b = sum(sp["s"].elapsed_time(sp["e"]) for sp in self.bwd
-                if "s" in sp and "e" in sp)
-        return f, b
+        r = sum(a.elapsed_time(b) for a, b in self.rerun)
+        done = [sp for sp in self.bwd if "s" in sp and "e" in sp]
+        b = sum(sp["s"].elapsed_time(sp["e"]) for sp in done)
+        return f, r, b, len(done)
 
 
-def timed_grad(task, params, batch, attr: str):
-    """One ``loss_and_grad`` of ``task`` with its ``attr`` core timed:
-    (step ms, core forward ms, core backward ms, calls)."""
+def timed_grad(task, params, batch, attr: str, what: str) -> dict:
+    """A gradient pass of ``task`` (``loss_and_grad``'s forward and
+    backward, with the task's ``remat``) with its ``attr`` core timed,
+    run twice (the first warms the allocator for this ``remat``) and
+    read from the second: the pass's ms, its peak memory and the memory
+    held before it (GiB), the core's forward, rerun and backward ms and
+    calls.  Fails unless each first-pass call has its one backward, and
+    the reruns number the calls with remat on and none without."""
     import torch
-    timer = core_timer(getattr(task, attr))
-    setattr(task, attr, timer)
-    try:
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        task.loss_and_grad(params, batch)
-        e1.record()
-        e1.synchronize()
-        f, b = timer.ms()
-    finally:
-        setattr(task, attr, timer.core)
-    return e0.elapsed_time(e1), f, b, len(timer.fwd)
+    from repro_torch import tree
+    from repro_torch.models import train_loss
+    for _ in range(2):
+        timer = core_timer(getattr(task, attr))
+        setattr(task, attr, timer)
+        try:
+            flat = [l.detach().requires_grad_(True)
+                    for l in tree.leaves(params)]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            with torch.enable_grad():
+                loss = train_loss(task.cfg, tree.unflatten(params, flat),
+                                  batch, remat=task.remat,
+                                  attn_core=task.attn_core,
+                                  ssd_fn=task.ssd_fn)
+                timer.in_backward = True
+                grads = torch.autograd.grad(loss, flat, allow_unused=True)
+            e1.record()
+            e1.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            f, r, b, nb = timer.ms()
+        finally:
+            setattr(task, attr, timer.core)
+        del loss, grads, flat
+    n, nr = len(timer.fwd), len(timer.rerun)
+    if nb != n or nr != (n if task.remat else 0):
+        fail(f"{what}: {n} first-pass core calls, {nb} backward spans, "
+             f"{nr} reruns (remat={task.remat})")
+    step = e0.elapsed_time(e1)
+    return dict(step_ms=step, peak_gb=peak / 2 ** 30,
+                held_before_gb=base / 2 ** 30, fwd_ms=f, rerun_ms=r,
+                bwd_ms=b, calls=n, reruns=nr, share=(f + b) / step,
+                share_with_reruns=(f + r + b) / step)
 
 
 def model_train_step(dev):
     """Phase 13 (a): one ``BatchModelTask`` step of gemma2-2b at full
-    width.  Its loss against ``train_loss`` through the kernels under no
-    grad (phase 12's f32 limit), U against the step's own gradient, w
-    against w0 - eta U bit for bit; wall, peak memory and the share of
-    the attention cores' forward and backward."""
+    width with remat (the default), its loss against ``train_loss``
+    through the kernels under no grad (phase 12's f32 limit), U against
+    the step's own gradient, w against w0 - eta U bit for bit; then the
+    same step without remat, its loss and every gradient bit for bit the
+    first's; both steps' walls and peak memory, and a warm gradient pass
+    of each with the attention cores' share (CUDA events in autograd
+    hooks; the first pass's forward and each call's backward, the
+    reruns beside them)."""
     import torch
     from repro_torch import prng, tree
     from repro_torch.configs import get_config
@@ -2744,75 +2795,146 @@ def model_train_step(dev):
     cfg = get_config(ts["arch"])
     what = f"model_train (a) {ts['arch']} B={ts['B']} S={ts['S']}"
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, prng.PRNGKey(0), torch.float32, device=dev)
     batcher = SeedAddressedBatcher(cfg, batch_size=ts["B"],
                                    seq_len=ts["S"], seed=0, device=dev)
     task = BatchModelTask(cfg, params, batcher)
-    seen = {}
     inner = task.loss_and_grad
+    steps = {}
+    for remat in (True, False):
+        task.remat = remat
+        seen = {}
 
-    def spy(p, b):
-        seen["loss"], seen["g"] = inner(p, b)
-        return seen["loss"], seen["g"]
+        def spy(p, b):
+            seen["loss"], seen["g"] = inner(p, b)
+            return seen["loss"], seen["g"]
 
-    task.loss_and_grad = spy
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    w, U = task.run_iterations(params, task.zero_update(), round_idx=0,
-                               client_id=0, start_h=0, n_iters=1,
-                               eta=ts["eta"], rng=prng.PRNGKey(0))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    task.loss_and_grad = inner
+        task.loss_and_grad = spy
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w, U = task.run_iterations(params, task.zero_update(), round_idx=0,
+                                   client_id=0, start_h=0, n_iters=1,
+                                   eta=ts["eta"], rng=prng.PRNGKey(0))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        task.loss_and_grad = inner
+        if remat:
+            e = float(torch.tensor(ts["eta"], dtype=torch.float32))
+            for p, u, g, nw in zip(tree.leaves(params), tree.leaves(U),
+                                   seen["g"], tree.leaves(w)):
+                if not torch.equal(u, g):
+                    fail(f"{what}: U is not the step's gradient")
+                if not bits_equal(nw, p - e * g):
+                    fail(f"{what}: w is not w0 - eta * U bit for bit")
+            gnorm = float(torch.sqrt(sum(torch.sum(g * g)
+                                         for g in seen["g"])))
+            # the gradient on the host while the other step runs
+            ref = (seen["loss"].cpu(), [g.cpu() for g in seen["g"]])
+        else:
+            same = bits_equal(seen["loss"].cpu(), ref[0]) and all(
+                bits_equal(g.cpu(), h) for g, h in zip(seen["g"], ref[1]))
+            print(f"phase model_train: {what} remat on and off: loss and "
+                  f"{len(ref[1])} gradient leaves bit for bit: {same}")
+            if not same:
+                fail(f"{what}: the step without remat differs from the "
+                     f"step with it")
+        steps[remat] = dict(wall=wall, peak=peak, loss=task.last_loss)
+        del w, U, seen
+    del ref
+    task.remat = True
     batch = batcher(0, 0, 0)
     with torch.no_grad():
         kloss = float(train_loss(cfg, params, batch))
-    rel = abs(task.last_loss - kloss) / abs(kloss)
+    rel = abs(steps[True]["loss"] - kloss) / abs(kloss)
     if not rel <= MODEL_F32_TOL:
-        fail(f"{what}: the step's loss {task.last_loss} (plain cores) is "
-             f"{rel} off the kernels' {kloss} (> {MODEL_F32_TOL})")
-    e = float(torch.tensor(ts["eta"], dtype=torch.float32))
-    for p, u, g, nw in zip(tree.leaves(params), tree.leaves(U), seen["g"],
-                           tree.leaves(w)):
-        if not torch.equal(u, g):
-            fail(f"{what}: U is not the step's gradient")
-        if not bits_equal(nw, p - e * g):
-            fail(f"{what}: w is not w0 - eta * U bit for bit")
-    gnorm = float(torch.sqrt(sum(torch.sum(g * g) for g in seen["g"])))
-    del w, U, seen
-    step_ms, f_ms, b_ms, calls = timed_grad(task, params, batch,
-                                            "attn_core")
+        fail(f"{what}: the step's loss {steps[True]['loss']} (plain "
+             f"cores) is {rel} off the kernels' {kloss} (> "
+             f"{MODEL_F32_TOL})")
+    torch.cuda.empty_cache()
+    for remat in (True, False):
+        task.remat = remat
+        steps[remat]["grad"] = timed_grad(task, params, batch, "attn_core",
+                                          what)
+    on, off = steps[True], steps[False]
     print(f"phase model_train: {what} layers={cfg.n_layers} d_model="
-          f"{cfg.d_model} vocab={cfg.vocab_size} step_wall_s={wall} "
-          f"loss={task.last_loss} kernel_route_loss={kloss} rel={rel} "
-          f"grad_norm={gnorm} peak_mem_gb={peak / 2 ** 30} "
-          f"timed_step_ms={step_ms} attn_core_fwd_ms={f_ms} "
-          f"attn_core_bwd_ms={b_ms} attn_core_calls={calls} "
-          f"attn_core_share={(f_ms + b_ms) / step_ms}")
+          f"{cfg.d_model} vocab={cfg.vocab_size} loss={on['loss']} "
+          f"kernel_route_loss={kloss} rel={rel} grad_norm={gnorm} "
+          f"remat_on: step_wall_s={on['wall']} peak_mem_gb="
+          f"{on['peak'] / 2 ** 30} grad_pass={on['grad']} remat_off: "
+          f"step_wall_s={off['wall']} peak_mem_gb={off['peak'] / 2 ** 30} "
+          f"grad_pass={off['grad']} (attn_core share: the first pass's "
+          f"forward and each call's backward; reruns apart)")
     del params, task
     torch.cuda.empty_cache()
-    return dict(step_wall_s=wall, peak_gb=peak / 2 ** 30,
-                attn_share=(f_ms + b_ms) / step_ms)
+    return dict(step_wall_s=on["wall"], peak_gb=on["peak"] / 2 ** 30,
+                attn_share=on["grad"]["share"],
+                step_wall_s_no_remat=off["wall"],
+                peak_gb_no_remat=off["peak"] / 2 ** 30,
+                attn_share_no_remat=off["grad"]["share"])
 
 
 def engine_rows(eng) -> dict:
-    """The device engine's [*, D] f32 rows: held in its state, and at
-    most alive at once in a completion tick (the state, the tick's new v
-    (the server step resets the ring and writes the broadcast rows in
-    place), the SGD block's copies of w and U and one gradient, the sent
-    rows, tick_scatter's w, U, ring rows and block partials)."""
-    C, L, B, Q = eng.C, eng.L, eng.B, eng.Q
-    held = 2 * C + 1 + L + B + Q
-    return dict(held=held, peak=held + 1 + 2 * C + 1 + C + 2 * C + L + L)
+    """The device engine's [*, D] f32 rows: held in its state (counted
+    from the state's tensors), and reckoned at most alive at once in a
+    completion tick: the state, the tick's new v (the server step resets
+    the ring and writes the broadcast rows in place), the SGD block's
+    copies of w and U and one gradient, the clipped and noised sent rows
+    (with DP only; without, the sent rows are U), tick_scatter's w, U,
+    ring rows and block partials."""
+    import torch
+    C, L, D = eng.C, eng.L, eng.D
+    held = sum(t.numel() for t in eng.state
+               if torch.is_tensor(t) and t.dim() and t.shape[-1] == D) // D
+    sent = C if eng.dp_on else 0
+    return dict(held=held,
+                peak=held + 1 + 2 * C + 1 + sent + 2 * C + L + L)
+
+
+def cohort_fits(dev, cfg) -> tuple:
+    """Phase 13 (b)'s hungriest run, the device engine with DP and
+    operand noise (the clipped, noised sent rows are C more rows), for
+    one round at ``cfg``'s depth: (fits, peak bytes, what ran out of
+    memory)."""
+    import torch
+    import repro_torch as rt
+    from repro_torch import prng
+    from repro_torch.core import BatchModelTask
+    from repro_torch.data import SeedAddressedBatcher
+    from repro_torch.models import init_params
+
+    tc = TRAIN_COHORT
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    why = None
+    try:
+        params = init_params(cfg, prng.PRNGKey(tc["seed"]), torch.float32,
+                             device=dev)
+        batcher = SeedAddressedBatcher(cfg, batch_size=tc["B"],
+                                       seq_len=tc["S"], seed=tc["seed"],
+                                       device=dev)
+        sim = rt.DeviceCohortSimulator(
+            BatchModelTask(cfg, params, batcher, dp_clip=tc["clip"],
+                           dp_sigma=tc["sigma"]),
+            latency=tc["latency"], block=tc["block"], dp_rng="operand",
+            n_clients=tc["C"],
+            sizes_per_client=tc["sizes"], round_stepsizes=tc["etas"],
+            d=tc["d"], seed=tc["seed"], speeds=tc["speeds"], device=dev)
+        timed_run(sim, 1, 1)
+    except torch.cuda.OutOfMemoryError as e:
+        why = str(e).splitlines()[0][:300]
+    return why is None, torch.cuda.max_memory_allocated(), why
 
 
 def model_cohort(dev):
     """Phase 13 (b): mamba2-780m on the device engine, the host engine
-    and the event simulator (``TRAIN_COHORT``); returns the launches,
-    walls and the kernels' times at model D."""
+    and the event simulator (``TRAIN_COHORT``), at its full depth where
+    the device engine fits the card, else at ``cut_layers``; returns the
+    launches, walls and the kernels' times at model D."""
     import dataclasses
+    import gc
 
     import torch
     import repro_torch as rt
@@ -2827,8 +2949,19 @@ def model_cohort(dev):
     tc = TRAIN_COHORT
     cfg = get_config(tc["arch"])
     full_layers = cfg.n_layers
-    if tc["layers"]:
-        cfg = dataclasses.replace(cfg, n_layers=tc["layers"])
+    t0 = time.perf_counter()
+    fits, full_peak, why = cohort_fits(dev, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase model_train: (b) {tc['arch']} at its {full_layers} layers,"
+          f" the device engine with DP (operand noise) for one round: "
+          f"fits={fits} "
+          f"peak_mem_gb={full_peak / 2 ** 30} card_gb="
+          f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30} "
+          f"wall_s={time.perf_counter() - t0}"
+          + (f" ({why})" if why else ""))
+    if not fits:
+        cfg = dataclasses.replace(cfg, n_layers=tc["cut_layers"])
     t0 = time.perf_counter()
     params = init_params(cfg, prng.PRNGKey(tc["seed"]), torch.float32,
                          device=dev)
@@ -2843,40 +2976,51 @@ def model_cohort(dev):
           f"layers: {D_full}) row_gb={4 * D / 1e9} init_s="
           f"{time.perf_counter() - t0}")
 
-    def task(dp: bool):
+    def task(dp: bool, remat: bool = True):
         return BatchModelTask(cfg, params, batcher,
                               dp_clip=tc["clip"] if dp else 0.0,
-                              dp_sigma=tc["sigma"] if dp else 0.0)
+                              dp_sigma=tc["sigma"] if dp else 0.0,
+                              remat=remat)
 
-    step_ms, f_ms, b_ms, calls = timed_grad(task(False), params,
-                                            batcher(0, 0, 0), "ssd_fn")
-    print(f"phase model_train: (b) one step's gradient: ms={step_ms} "
-          f"ssd_core_fwd_ms={f_ms} ssd_core_bwd_ms={b_ms} calls={calls} "
-          f"ssd_core_share={(f_ms + b_ms) / step_ms}")
+    for remat in (True, False):
+        g = timed_grad(task(False, remat), params, batcher(0, 0, 0),
+                       "ssd_fn", "phase model_train (b)")
+        print(f"phase model_train: (b) one step's gradient, remat="
+              f"{remat}: ms={g['step_ms']} peak_mem_gb={g['peak_gb']} "
+              f"held_before_gb={g['held_before_gb']} "
+              f"ssd_core_fwd_ms={g['fwd_ms']} "
+              f"ssd_core_rerun_ms={g['rerun_ms']} ssd_core_bwd_ms="
+              f"{g['bwd_ms']} calls={g['calls']} reruns={g['reruns']} "
+              f"ssd_core_share={g['share']} (the first pass's forward and "
+              f"each call's backward)")
     kw = dict(n_clients=tc["C"], sizes_per_client=tc["sizes"],
               round_stepsizes=tc["etas"], d=tc["d"], seed=tc["seed"],
               speeds=tc["speeds"], device=dev)
     lat = tc["latency"]
     engines = {
-        "device": lambda dp, rng: rt.DeviceCohortSimulator(
-            task(dp), latency=lat, block=tc["block"], dp_rng=rng, **kw),
-        "host": lambda dp, rng: rt.CohortSimulator(
-            task(dp), latency_fn=lambda r: lat, block=tc["block"], **kw),
-        "event": lambda dp, rng: rt.AsyncFLSimulator(
-            task(dp), latency_fn=lambda r: lat, **kw)}
-    out = {"launches": {}, "walls": {}, "D": D, "layers": cfg.n_layers}
+        "device": lambda dp, rng, remat: rt.DeviceCohortSimulator(
+            task(dp, remat), latency=lat, block=tc["block"], dp_rng=rng,
+            **kw),
+        "host": lambda dp, rng, remat: rt.CohortSimulator(
+            task(dp, remat), latency_fn=lambda r: lat, block=tc["block"],
+            **kw),
+        "event": lambda dp, rng, remat: rt.AsyncFLSimulator(
+            task(dp, remat), latency_fn=lambda r: lat, **kw)}
+    out = {"launches": {}, "walls": {}, "D": D, "layers": cfg.n_layers,
+           "peaks_gb": {}}
     fps = {}
-    for name, dp, rng in (("device", False, "operand"),
-                          ("host", False, "operand"),
-                          ("device", True, "operand"),
-                          ("host", True, "operand"),
-                          ("device", True, "in_kernel"),
-                          ("event", False, "operand")):
+    for name, dp, rng, remat in (("device", False, "operand", True),
+                                 ("device", False, "operand", False),
+                                 ("host", False, "operand", True),
+                                 ("device", True, "operand", True),
+                                 ("host", True, "operand", True),
+                                 ("device", True, "in_kernel", True),
+                                 ("event", False, "operand", True)):
         tag = f"{name} dp={dp}" + (f" {rng}" if dp and name == "device"
-                                   else "")
+                                   else "") + ("" if remat else " remat=off")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        sim = engines[name](dp, rng)
+        sim = engines[name](dp, rng, remat)
         launches.reset()
         res, wall = timed_run(sim, tc["rounds"], 1)
         counts = dict(launches.LAUNCHES)
@@ -2911,10 +3055,19 @@ def model_cohort(dev):
               f"peak_mem_gb={peak / 2 ** 30} launches={counts} losses="
               f"{fp['losses']}"
               + (f" rows_held={rows['held']} rows_peak={rows['peak']} "
-                 f"reckoned_peak_gb={rows['peak'] * 4 * D / 2 ** 30} "
-                 f"at_{full_layers}_layers="
-                 f"{rows['peak'] * 4 * D_full / 2 ** 30}"
+                 f"reckoned_rows_gb={rows['peak'] * 4 * D / 2 ** 30} "
+                 f"at_{full_layers}_layers: reckoned_rows_gb="
+                 f"{rows['peak'] * 4 * D_full / 2 ** 30} peak_mem_gb_scaled="
+                 f"{peak * D_full / D / 2 ** 30}"
                  if rows else ""))
+        out["peaks_gb"][tag] = peak / 2 ** 30
+        if not remat:
+            # remat changes what backward keeps, not one bit of the run
+            same_run(fps["device dp=False"], fp,
+                     "phase model_train (b) remat on and off")
+            del sim, res, fp
+            torch.cuda.empty_cache()
+            continue
         # with DP the noise (std clip * sigma = 8 a coordinate) overwhelms
         # the model and its loss may overflow, in the reference as here;
         # those runs are held bit for bit between the engines instead
@@ -3444,6 +3597,15 @@ def phase_trace(dev, X, y, kw, smi: str) -> dict:
     found = check_trace(read_trace(jl), d=2)       # capture's default d
     if found:
         fail(f"phase trace: (d) the captured trace: {found[:5]}")
+    # the CLI's exit 0 above covers every family; PURITY-* on its own
+    from repro_torch.analysis import purity
+    from repro_torch.analysis.base import iter_py_files
+    found = purity.check_files(iter_py_files(
+        [os.path.join(HERE, "src", "repro_torch")]))
+    print(f"phase trace: (d) PURITY-* over src/repro_torch: "
+          f"{len(found)} findings")
+    if found:
+        fail(f"phase trace: (d) PURITY-*: {[v.format() for v in found]}")
     # (e)
     prof = profiled_main(dev, X, y, kw)
     shown = (f"span_cuda_ms={prof['span_cuda_ms']}"
@@ -3499,6 +3661,9 @@ DRYRUN_CHECK = (dict(arch="gemma2-2b", kind="prefill", B=1, S=32768),
 # the predicted live-storage peak against max_memory_allocated above the
 # arguments, and the floor of the measured wall under the roofline bound
 DRYRUN_PEAK_RTOL = 0.25
+# gemma2-2b train_4k on 16x16, temp a card, when the port kept every
+# layer's activations (the dry run with --device cpu under torch 2.13)
+DRYRUN_TEMP_NO_REMAT_GB = 1140.19
 DRYRUN_WALL_FLOOR = 0.95
 DRYRUN_DIR = os.path.join(HERE, "build", "dryrun")
 # CLI processes at once in (a): the card's machine has 8 cores
@@ -3875,8 +4040,19 @@ def phase_dryrun(dev, smi: str):
     real runs' launches, the kernels line's rows)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     t0 = time.perf_counter()
-    dryrun_cli(env)
+    cli_rows = dryrun_cli(env)
     print(f"phase dryrun: (a) wall_s={time.perf_counter() - t0}")
+    # the training steps' plan with remat (RunConfig's default) beside the
+    # plan before the port checkpointed its layers
+    for r in cli_rows:
+        if r["arch"] == "gemma2-2b" and r["shape"] == "train_4k" \
+                and r["status"] == "OK":
+            print(f"phase dryrun: (a) gemma2-2b train_4k {r['mesh']} with "
+                  f"remat: temp_gb="
+                  f"{r['memory_analysis']['temp_size_in_bytes'] / 1e9} "
+                  f"flops={r['roofline']['hlo_flops']} (16x16 without "
+                  f"remat, before it was ported: {DRYRUN_TEMP_NO_REMAT_GB} "
+                  f"GB; torch 2.13 on a CPU, --device cpu)")
     t0 = time.perf_counter()
     counts = dryrun_against_card(smi)
     print(f"phase dryrun: (b) wall_s={time.perf_counter() - t0} "

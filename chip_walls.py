@@ -134,8 +134,11 @@ def model_cohort_walls(cs, dev, label: str) -> None:
     from repro_torch.models import init_params
     tc = cs.TRAIN_COHORT
     cfg = get_config(tc["arch"])
-    if tc["layers"]:
-        cfg = dataclasses.replace(cfg, n_layers=tc["layers"])
+    # the depth phase 13 (b) runs where its full depth does not fit the
+    # card (``layers`` in trees before the cut was tried first)
+    layers = tc.get("cut_layers", tc.get("layers"))
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     params = init_params(cfg, prng.PRNGKey(tc["seed"]), torch.float32,
                          device=dev)
     batcher = SeedAddressedBatcher(cfg, batch_size=tc["B"], seq_len=tc["S"],

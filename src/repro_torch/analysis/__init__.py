@@ -3,6 +3,8 @@
 Rule families (see ``python -m repro_torch.analysis --help``):
   PRNG-*    — PRNG address-space audit against the central salt
               registry (``repro_torch.analysis.salts``)
+  PURITY-*  — host-world constructs inside what torch traces or re-runs
+              (``repro_torch.analysis.purity``)
   STRUCT-*  — spec coverage and dtype discipline of ``DeviceCohortState``
   INV-*     — protocol invariants model-checked over JSONL telemetry
               traces (``repro_torch.analysis.invariants``)

@@ -7,6 +7,8 @@ Rule families:
   * PRNG-FOLDIN-*  fold_in argument-tuple discipline per salt chain
               (duplicate constants, const/variable mixing,
               conflicting variable addresses — AST)
+  * PURITY-*  host-world constructs inside what torch traces or re-runs
+              (AST)
   * STRUCT-*  DeviceCohortState spec coverage against
               ``cohort_pspecs`` and dtype discipline (introspection of a
               tiny engine built on ``device``, the card by default;
@@ -30,14 +32,15 @@ def run_analysis(paths: Sequence[str], *,
                  device=None,
                  ) -> Tuple[List[Violation], List[Violation]]:
     """-> (all violations, violations remaining after the baseline)."""
-    from repro_torch.analysis import (foldin, invariants, prng, salts,
-                                      structure as structure_mod)
+    from repro_torch.analysis import (foldin, invariants, prng, purity,
+                                      salts, structure as structure_mod)
 
     files = iter_py_files(paths) if paths else []
     violations: List[Violation] = []
     violations.extend(salts.check_registry())
     violations.extend(prng.check_files(files))
     violations.extend(foldin.check_files(files))
+    violations.extend(purity.check_files(files))
     if structure:
         violations.extend(structure_mod.check_cohort_structure(device))
     if trace is not None:
@@ -51,8 +54,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     import argparse
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.analysis",
-        description="Parity sanitizer: PRNG salt audit, state dtype "
-                    "discipline, and protocol trace invariants.")
+        description="Parity sanitizer: PRNG salt audit, traced-code "
+                    "purity, state dtype discipline, and protocol trace "
+                    "invariants.")
     ap.add_argument("paths", nargs="*",
                     help=".py files or directories to lint "
                          "(e.g. src/repro_torch)")

@@ -67,8 +67,9 @@ def make_train_step(cfg, run_cfg, *, n_client_shards: int,
                     grad_pspecs=None):
     """Build ``train_step(params, momentum, batch, eta_bar, rng)``.
 
-    batch: dict of tensors with leading (C, B_local, ...) axes; ``rng``
-    one key on the CPU.  Returns (new_params, new_momentum, metrics).
+    batch: dict of tensors with leading (C, B_local, ...) axes;
+    ``eta_bar`` a host scalar (a 0-d CPU tensor is read with ``float``);
+    ``rng`` one key on the CPU.  Returns (new_params, new_momentum, metrics).
     """
     dp = run_cfg.fl.dp
     momentum_coef = 0.0  # paper uses plain SGD; momentum available via optim
@@ -90,7 +91,7 @@ def make_train_step(cfg, run_cfg, *, n_client_shards: int,
             g = tree_add_noise(g, rng, dp.clip_norm * dp.sigma)
         return g, loss.detach()
 
-    def train_step(params, momentum, batch, eta_bar, rng):
+    def train_step(params, momentum, batch, eta_bar: float, rng):
         rngs = prng.split(rng, n_client_shards)
         pods = _ClientPods.of(params, client_axis)
         if n_client_shards > 1 and pods is not None:
@@ -192,7 +193,7 @@ class _ClientPods:
 
 
 def make_serve_step(cfg, run_cfg, *, seq_len: int, unroll: bool = False):
-    def serve_step(params, cache, tokens, pos):
+    def serve_step(params, cache, tokens, pos: int):
         return model_api.serve_step(cfg, params, cache, tokens, pos,
                                     seq_len=seq_len, unroll=unroll)
     return serve_step

@@ -198,8 +198,12 @@ class BatchModelTask:
     SSD, which jax differentiates there): the ``flash_attention`` and
     ``ssd_scan`` kernels have no backward, in the reference as here.
     ``metrics`` evaluates under ``torch.no_grad()`` through the default
-    route, the kernels on a CUDA tensor.  ``remat`` is accepted, as
-    ``train_loss`` accepts it, and changes nothing.
+    route, the kernels on a CUDA tensor.  ``remat`` (default True, as
+    the reference's) goes to ``train_loss``: each layer body is
+    checkpointed and runs again in backward, so a step keeps one layer's
+    activations at a time; the loss and gradient are bit for bit those
+    of ``remat=False``.  The flat-params cohort adapter steps through
+    ``loss_and_grad``, so it carries ``remat`` too.
     """
 
     def __init__(self, cfg, params_template, data_fn, *,

@@ -251,7 +251,7 @@ def _cache_mask(pos: int, slot: int, L_cache: int, window, ring: bool,
     return valid[None, None, None, :]  # (1,1,1,L_cache)
 
 
-def decode_attend(cfg, lp, x, cache_k, cache_v, pos, window=None, *,
+def decode_attend(cfg, lp, x, cache_k, cache_v, pos: int, window=None, *,
                   rope=True, ring: bool = False):
     """One-token decode.  x: (B,1,d); cache_[kv]: (B,L_cache,KV,hd);
     pos: current position (int).  Returns (out (B,1,d), new_k, new_v).
@@ -275,7 +275,7 @@ def decode_attend(cfg, lp, x, cache_k, cache_v, pos, window=None, *,
     return out, cache_k, cache_v
 
 
-def decode_attend_quantized(cfg, lp, x, qcache, pos, window=None, *,
+def decode_attend_quantized(cfg, lp, x, qcache, pos: int, window=None, *,
                             rope=True, ring: bool = False):
     """int8-KV decode: dequantize-on-read, quantize-on-write.
 

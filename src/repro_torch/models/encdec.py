@@ -7,8 +7,10 @@ bidirectional attention through ``_scores_to_out`` with a full mask, as
 the reference does (not the kernel); the decoder is causal self-attention
 (``attend_full``: the ``flash_attention`` kernel on a CUDA tensor unless
 ``attn_core`` says otherwise) + cross-attention + MLP.  Layers run in a
-Python loop over the stacked params; ``remat=`` and ``unroll=`` are
-accepted and ignored, as in ``transformer``.
+Python loop over the stacked params; with ``remat`` on (the default)
+and grad enabled each layer body is checkpointed
+(``transformer.rematerialized``), as the reference's ``jax.checkpoint``
+does; ``unroll=`` is accepted and ignored, as in ``transformer``.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from repro_torch.models.common import (apply_norm, init_norm, normal_init,
                                        padded_vocab, sinusoidal_positions,
                                        unembed)
 from repro_torch.models.transformer import (_stack_norm, chunked_loss, layer,
-                                            layers)
+                                            layers, rematerialized)
 from repro_torch.sharding.context import constrain
 
 
@@ -76,14 +78,19 @@ def encode(cfg, params, encoder_embeds, *, remat: bool = True,
     x = constrain(encoder_embeds + pe[None])
     positions = _positions(B, S, dev)
     full = torch.ones((1, 1, S, S), dtype=torch.bool, device=dev)
-    for lp in layers(params["encoder"]):
+
+    def body(x, lp):
         h = apply_norm(cfg, x, lp["ln1"])
         q, k, v = attn._project_qkv(cfg, lp["attn"], h, positions, rope=False)
         o = attn._scores_to_out(cfg, q, k, v, full)
         o = torch.einsum("bsq,qd->bsd", o.reshape(B, S, -1), lp["attn"]["wo"])
         x = x + o
         h2 = apply_norm(cfg, x, lp["ln2"])
-        x = constrain(x + mlp_mod.apply_mlp(cfg, lp["mlp"], h2))
+        return constrain(x + mlp_mod.apply_mlp(cfg, lp["mlp"], h2))
+
+    body = rematerialized(body, remat)
+    for lp in layers(params["encoder"]):
+        x = body(x, lp)
     return apply_norm(cfg, x, params["encoder_final_norm"])
 
 
@@ -101,7 +108,8 @@ def decode_full(cfg, params, tokens, enc_out, *, remat: bool = True,
     B, S = tokens.shape
     x = constrain(_decoder_embed(cfg, params, tokens))
     positions = _positions(B, S, x.device)
-    for lp in layers(params["decoder"]):
+
+    def body(x, lp, enc_out):
         h = apply_norm(cfg, x, lp["ln1"])
         x = x + attn.attend_full(cfg, lp["self_attn"], h, positions,
                                  rope=False, core=attn_core)
@@ -109,20 +117,25 @@ def decode_full(cfg, params, tokens, enc_out, *, remat: bool = True,
         ek, ev = attn.project_cross_kv(cfg, lp["cross_attn"], enc_out)
         x = x + attn.cross_attend(cfg, lp["cross_attn"], hx, ek, ev)
         h2 = apply_norm(cfg, x, lp["ln2"])
-        x = constrain(x + mlp_mod.apply_mlp(cfg, lp["mlp"], h2))
+        return constrain(x + mlp_mod.apply_mlp(cfg, lp["mlp"], h2))
+
+    body = rematerialized(body, remat)
+    for lp in layers(params["decoder"]):
+        x = body(x, lp, enc_out)
     return apply_norm(cfg, x, params["final_norm"])
 
 
 def train_loss(cfg, params, batch, *, remat: bool = True,
                unroll: bool = False, attn_core: Optional[Callable] = None):
     """batch: {"tokens": (B,S_dec), "encoder_embeds": (B,S_enc,d)}."""
-    enc_out = encode(cfg, params, batch["encoder_embeds"])
+    enc_out = encode(cfg, params, batch["encoder_embeds"], remat=remat,
+                     unroll=unroll)
     tokens = batch["tokens"]
-    hidden = decode_full(cfg, params, tokens[:, :-1], enc_out,
-                         attn_core=attn_core)
+    hidden = decode_full(cfg, params, tokens[:, :-1], enc_out, remat=remat,
+                         unroll=unroll, attn_core=attn_core)
     mask = batch.get("mask")
     return chunked_loss(cfg, params, hidden, tokens[:, 1:],
-                        None if mask is None else mask[:, 1:])
+                        None if mask is None else mask[:, 1:], unroll=unroll)
 
 
 # ---------------------------------------------------------------------------
@@ -148,7 +161,7 @@ def prime_cross_cache(cfg, params, cache, enc_out):
                 cross_v=torch.stack([v for _, v in kvs]))
 
 
-def serve_step(cfg, params, cache, tokens, pos, *, seq_len: int,
+def serve_step(cfg, params, cache, tokens, pos: int, *, seq_len: int,
                unroll: bool = False):
     pos = int(pos)
     x = _decoder_embed_pos(cfg, params, tokens, pos)

@@ -26,6 +26,11 @@ def init_params(d_features: int, key=None,
     return {"w": w, "b": torch.zeros((), dtype=torch.float32, device=device)}
 
 
+def predict_logits(params, x: torch.Tensor) -> torch.Tensor:
+    """x: (..., d) -> the logits x·w + b, (...)."""
+    return x @ params["w"] + params["b"]
+
+
 def _bce_with_logits(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     # numerically stable BCE-with-logits
     return (torch.clamp(z, min=0.0) - z * y

@@ -58,8 +58,10 @@ def forward_prefill(cfg, params, batch, *, remat: bool = True,
                                         remat=remat, unroll=unroll,
                                         attn_core=attn_core, ssd_fn=ssd_fn)
     else:
-        enc_out = encdec.encode(cfg, params, batch["encoder_embeds"])
+        enc_out = encdec.encode(cfg, params, batch["encoder_embeds"],
+                                remat=remat, unroll=unroll)
         hidden = encdec.decode_full(cfg, params, batch["tokens"], enc_out,
+                                    remat=remat, unroll=unroll,
                                     attn_core=attn_core)
     return unembed(cfg, params, hidden[:, -1])
 
@@ -71,7 +73,7 @@ def init_cache(cfg, batch, cache_len, dtype=torch.bfloat16, device=None):
     return encdec.init_cache(cfg, batch, cache_len, dtype, device=device)
 
 
-def serve_step(cfg, params, cache, tokens, pos, *, seq_len: int,
+def serve_step(cfg, params, cache, tokens, pos: int, *, seq_len: int,
                unroll: bool = False):
     if _family(cfg) == "decoder":
         return transformer.serve_step(cfg, params, cache, tokens, pos,

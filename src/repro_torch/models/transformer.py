@@ -6,13 +6,23 @@ loop over that axis (``layer``), the reference's ``unroll=True`` form of
 its ``lax.scan``.  Per-layer heterogeneity such as gemma2's local/global
 alternation is a per-layer ``window`` (``layer_windows``).
 
-``remat=`` and ``unroll=`` are accepted so that call sites read as the
-reference's, and ignored: eager PyTorch has no scan to unroll, and the
-kernels of ``forward`` have no backward to rematerialize for.  The
-reference's sharding hooks (``constrain``, ``shard_layer_param_
-cotangents``) sit where the reference calls them; they act only on
-DTensors under a spec the dry run installs (``repro_torch.sharding.
-context``), and are the identity otherwise.
+``remat=True`` (the default, as the reference's) runs each layer body,
+or each (local, global) pair under ``REPRO_CHUNKED_LOCAL``, through
+``torch.utils.checkpoint`` when grad is enabled: the body's activations
+are dropped after the forward and the body runs again in backward, as
+the reference's ``jax.checkpoint`` does.  The training step
+differentiates the plain cores (``attn_core`` / ``ssd_fn``), so without
+it every layer's activations would stay alive until backward.  Each
+loss chunk's unembed, ``log_softmax`` and gather are checkpointed
+whatever ``remat`` says (the reference's ``@jax.checkpoint one``).
+Under ``no_grad`` (prefill, metrics) nothing is checkpointed.  The
+bodies draw no random numbers, so no RNG state is kept for the rerun.
+``unroll=`` is accepted and ignored: eager PyTorch has no scan to
+unroll.  The reference's sharding hooks (``constrain``,
+``shard_layer_param_cotangents``) sit where the reference calls them,
+inside the checkpointed bodies; they act only on DTensors under a spec
+the dry run installs (``repro_torch.sharding.context``), are installed
+again for the rerun, and are the identity otherwise.
 
 Kernels: ``forward`` runs each attention layer through ``attend_full``
 with ``attn_core`` (None: the ``flash_attention`` kernel on a CUDA
@@ -32,6 +42,7 @@ import os
 from typing import Callable, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng, tree
 from repro_torch.models import attention as attn
@@ -40,8 +51,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (apply_norm, embed_tokens, init_norm,
                                        normal_init, padded_vocab, unembed)
-from repro_torch.sharding.context import (constrain,
-                                          shard_layer_param_cotangents)
+from repro_torch.sharding.context import (constrain, installed_specs,
+                                          shard_layer_param_cotangents,
+                                          use_specs)
 
 F32 = torch.float32
 
@@ -151,6 +163,23 @@ def _layer_body(cfg, x, lp, window, positions, *, unroll=False,
     return x, aux
 
 
+def rematerialized(fn, remat: bool = True):
+    """``fn`` as ``jax.checkpoint(fn)``: when ``remat`` is on and grad is
+    enabled, a call keeps only its inputs and runs ``fn`` again in
+    backward (``torch.utils.checkpoint``, non-reentrant), with the
+    sharding specs installed at the call installed again; else ``fn``."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn
+    specs = installed_specs()
+
+    def again(*args):
+        with use_specs(specs):
+            return fn(*args)
+
+    return lambda *args: checkpoint(again, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+
+
 def forward(cfg, params, tokens, *, remat: bool = True,
             positions: Optional[torch.Tensor] = None, unroll: bool = False,
             attn_core: Optional[Callable] = None, ssd_fn=None):
@@ -175,23 +204,32 @@ def forward(cfg, params, tokens, *, remat: bool = True,
         and cfg.n_layers % 2 == 0
         and S > 2 * cfg.sliding_window)
 
+    lps = layers(params["blocks"])
     if chunked_local:
         W = int(cfg.sliding_window)
-        lps = layers(params["blocks"])
-        for pi in range(cfg.n_layers // 2):
-            lp_loc = shard_layer_param_cotangents(lps[2 * pi])
-            lp_glb = shard_layer_param_cotangents(lps[2 * pi + 1])
+
+        def pair_body(x, lp_loc, lp_glb):
+            lp_loc = shard_layer_param_cotangents(lp_loc)
+            lp_glb = shard_layer_param_cotangents(lp_glb)
             x, a1 = _layer_body(cfg, x, lp_loc, None, positions,
                                 chunked_local_window=W, **kw)
             x = constrain(x)
             x, a2 = _layer_body(cfg, x, lp_glb, S, positions, **kw)
-            x = constrain(x)
+            return constrain(x), a1, a2
+
+        pair_body = rematerialized(pair_body, remat)
+        for pi in range(cfg.n_layers // 2):
+            x, a1, a2 = pair_body(x, lps[2 * pi], lps[2 * pi + 1])
             aux = aux + a1 + a2
     else:
-        for li, lp in enumerate(layers(params["blocks"])):
+        def body(x, lp, window):
             lp = shard_layer_param_cotangents(lp)
-            x, a = _layer_body(cfg, x, lp, windows[li], positions, **kw)
-            x = constrain(x)
+            x, a = _layer_body(cfg, x, lp, window, positions, **kw)
+            return constrain(x), a
+
+        body = rematerialized(body, remat)
+        for li, lp in enumerate(lps):
+            x, a = body(x, lp, windows[li])
             aux = aux + a
     x = apply_norm(cfg, x, params["final_norm"])
     return x, aux
@@ -220,16 +258,22 @@ def chunked_loss(cfg, params, hidden, labels, mask=None, chunk: int = 512,
         S = S + pad
     if mask is None:
         mask = torch.ones_like(labels)
+
+    def one(h_c, y_c, m_c):
+        logits = unembed(cfg, params, h_c)
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, y_c[..., None].to(torch.int64))[..., 0]
+        m = m_c.to(F32)
+        return torch.sum(-ll * m), torch.sum(m)
+
+    one = rematerialized(one)
     tot = torch.zeros((), dtype=F32, device=hidden.device)
     cnt = torch.zeros((), dtype=F32, device=hidden.device)
     for lo in range(0, S, chunk):
-        logits = unembed(cfg, params, hidden[:, lo:lo + chunk])
-        logp = torch.log_softmax(logits, dim=-1)
-        ll = torch.gather(logp, -1,
-                          labels[:, lo:lo + chunk, None].to(torch.int64))[..., 0]
-        m = mask[:, lo:lo + chunk].to(F32)
-        tot = tot + torch.sum(-ll * m)
-        cnt = cnt + torch.sum(m)
+        l, c = one(hidden[:, lo:lo + chunk], labels[:, lo:lo + chunk],
+                   mask[:, lo:lo + chunk])
+        tot = tot + l
+        cnt = cnt + c
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -304,9 +348,10 @@ def _decode_layer(cfg, x, lp, window, layer_cache, pos, *, seq_len, ring,
     return x + ff, new_cache
 
 
-def serve_step(cfg, params, cache, tokens, pos, *, seq_len: int,
+def serve_step(cfg, params, cache, tokens, pos: int, *, seq_len: int,
                unroll: bool = False):
-    """Decode one token.  tokens (B,1); pos an int (or 0-d tensor).
+    """Decode one token.  tokens (B,1); pos a host int (a 0-d tensor is
+    read with ``int``, a sync when it lies on the card).
 
     ``seq_len`` is the logical max sequence; ring buffering activates when
     the allocated cache is shorter (windowed long-context decode).

@@ -135,6 +135,21 @@ def activation_spec() -> Optional[P]:
     return _ACTIVATION_SPEC
 
 
+def installed_specs():
+    """The (activation, parameter-cotangent) specs installed now: a body
+    that runs again later (a checkpointed layer's rerun in backward)
+    installs them again with ``use_specs``, as a traced body keeps the
+    constraints it was traced with."""
+    return _ACTIVATION_SPEC, _PARAM_COT_SPECS
+
+
+@contextlib.contextmanager
+def use_specs(specs):
+    act, cot = specs
+    with use_activation_spec(act), use_param_cotangent_specs(cot):
+        yield
+
+
 def _pin(x, spec):
     if not _is_dtensor(x):
         return x

@@ -77,6 +77,24 @@ def test_per_example_grad_matches_jax_grad():
     assert gb[0].item() == float(np.asarray(g["b"])[0])
 
 
+@pytest.mark.parametrize("shape", [(12,), (64, 12), (3, 5, 12)])
+def test_predict_logits_matches_reference(shape):
+    """``models.logreg.predict_logits``: x·w + b for one example, a batch
+    and a batch of batches, against the reference's (the dot's sums
+    reordered: rtol 1e-6)."""
+    from repro.models import logreg as jlogreg
+    from repro_torch.models import logreg
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=shape).astype(np.float32)
+    p = {"w": rng.normal(size=shape[-1]).astype(np.float32),
+         "b": np.float32(0.25)}
+    want = np.asarray(jlogreg.predict_logits(p, x))
+    got = logreg.predict_logits({k: torch.as_tensor(v) for k, v in
+                                 p.items()}, torch.as_tensor(x))
+    assert tuple(got.shape) == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
 def test_clip_tree_global_norm_over_w_and_b():
     """``clip_tree(tree, clip)`` (the reference's signature): one global
     norm over the ``w`` and ``b`` leaves of each gradient tree."""
