@@ -53,6 +53,7 @@ def spans(make, rounds):
     """Host spans around the tick's parts, each closed by a device sync."""
     import torch
     from repro_torch import prng
+    from repro_torch.cohort import clients as cmod
     from repro_torch.cohort import device as dmod
 
     sim = make()
@@ -69,16 +70,19 @@ def spans(make, rounds):
             return out
         return wrap
 
-    orig = dict(normal=prng.normal, run_block=eng.ctask.run_block,
-                server_apply=dmod.server_apply,
-                tick_deliver=dmod.tick_deliver,
-                tick_scatter=dmod.tick_scatter,
-                cohort_clip_noise=dmod.cohort_clip_noise)
+    # the device module's names, and the rows pass the client axis calls
+    wrapped = ("server_apply", "tick_deliver", "tick_scatter_finish",
+               "cohort_clip_noise")
+    orig = dict(normal_rows=prng.normal_rows,
+                run_block=eng.ltask.run_block,
+                tick_scatter_rows=cmod.tick_scatter_rows,
+                **{k: getattr(dmod, k) for k in wrapped})
     try:
-        dmod.prng.normal = timed("dp_noise_draw", orig["normal"])
-        eng.ctask.run_block = timed("sgd_block", orig["run_block"])
-        for k in ("server_apply", "tick_deliver", "tick_scatter",
-                  "cohort_clip_noise"):
+        dmod.prng.normal_rows = timed("dp_noise_draw", orig["normal_rows"])
+        eng.ltask.run_block = timed("sgd_block", orig["run_block"])
+        cmod.tick_scatter_rows = timed("tick_scatter_rows",
+                                       orig["tick_scatter_rows"])
+        for k in wrapped:
             setattr(dmod, k, timed(k, orig[k]))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -86,9 +90,9 @@ def spans(make, rounds):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        dmod.prng.normal = orig["normal"]
-        for k in ("server_apply", "tick_deliver", "tick_scatter",
-                  "cohort_clip_noise"):
+        dmod.prng.normal_rows = orig["normal_rows"]
+        cmod.tick_scatter_rows = orig["tick_scatter_rows"]
+        for k in wrapped:
             setattr(dmod, k, orig[k])
     return wall, acc, res, eng
 

@@ -152,12 +152,29 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    read as STRUCT-PSPEC and STRUCT-STALE.  Prints its own kernels line
    (``{"phase": "dryrun", "kernels": [...]}``: rows 7 and 8 through their
    custom ops, launches from (b)'s real runs).
+16. ``cohort_mesh`` (run right after phase 10): the device engine over a
+   ``clients`` mesh of one NCCL rank: (a) the main run with operand and
+   with in-kernel noise, bit for bit phase 3's ``mesh=None`` runs (the
+   integers, the census, the losses as bytes, ``w`` / ``U`` / ``v``), the
+   state's placements ``cohort_shardings``' (views of the rank's
+   tensors), one host read a tick and the collectives a tick printed;
+   (b) phase 5's small overflow + FedAsync case, bit for bit its
+   ``mesh=None`` run, both noise sources; meanwhile the five ported
+   examples (``examples/torch_*.py``) at their reference sizes on the
+   card, all started at once as users start them (exit 0, each one's
+   wall printed).  Phase 1 (c) holds tick_scatter's two entry points
+   (``tick_scatter_rows``, ``tick_scatter_finish``: the engines' route)
+   to the fused launch and their twins at the main shape, a rank's rows
+   at a row offset from a carry among them, and the in-kernel noise at
+   a row offset to the whole draw's rows.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (launches from the path that runs each kernel most: the tick kernels'
 from the scenario runs, with the main run's and the host engine's beside
-them; attention and the SSD from phase 12, the one-layer phases' beside
-them; rows 1-5 also with phase 13's launches and time at model D and
+them; the fused ``tick_scatter`` is on no path now, ``on_path`` false,
+its two passes launched by the engines as ``tick_scatter_rows`` /
+``tick_scatter_finish``; attention and the SSD from phase 12, the
+one-layer phases' beside them; rows 1-5 also with phase 13's launches and time at model D and
 phase 14's traced main runs' launches), and, last,
 ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before that line; so does a machine without CUDA.
@@ -310,6 +327,12 @@ SUM_RTOL = 1e-5
 ROW_RTOL = 1e-6
 
 
+# the kernels both cohort engines launch on every tick kind that needs
+# them: the server step, the delivery gather, tick_scatter's two passes
+TICK_PATH = ("bucket_apply", "tick_deliver", "tick_scatter_rows",
+             "tick_scatter_finish")
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     raise SystemExit(1)
@@ -386,6 +409,119 @@ def scatter_bound(C: int, D: int, G: int, nd: int):
     sent, three operations per element of a done row."""
     return bound(4 * (2 * C * D + nd * D + 2 * G * D + G * C + C
                       + 2 * C * D) + G + C, 2 * G * C * D + 3 * nd * D)
+
+
+def rows_bound(C: int, D: int, G: int, nd: int, nblk: int):
+    """tick_scatter's rows pass alone: read sent, w, U on the nd done
+    rows, wgt, eta and done; write w', U' and the nblk block partials; G
+    products and sums per element of sent, three operations per element
+    of a done row."""
+    return bound(4 * (2 * C * D + nd * D + G * C + C + 2 * C * D
+                      + nblk * G * D) + C, 2 * G * C * D + 3 * nd * D)
+
+
+def finish_bound(nblk: int, G: int, D: int):
+    """tick_scatter's finish pass alone: read the partials, upd and any_g;
+    write the G rows; one add per partial element and one per row."""
+    return bound(4 * (nblk * G * D + 2 * G * D) + G, nblk * G * D + G * D)
+
+
+# rows [lo, hi) of the main shape's client axis: a rank's rows that begin
+# and end inside blocks of the whole axis's partition (64 rows a block)
+SPLIT_ROWS = (1000, 5000)
+
+
+def scatter_pass_rows(sargs, fused, plain) -> list:
+    """Phase 1 (c): tick_scatter's two entry points at the main shape,
+    as the engines launch them.  The rows pass over all C rows under the
+    whole axis's partition: w', U' the fused launch's, its partials its
+    twin's, bit for bit.  Over ``SPLIT_ROWS`` at their row offset, the
+    block begun before lo started from the carry (the rows pass over that
+    block's rows before lo): its partials bit for bit the whole's, the
+    last (cut) one its twin's.  The finish over the whole's partials, and
+    over those with the cut rows' partials in their place, bit for bit the
+    fused launch's ring rows.  Each entry point timed beside its twin
+    (the plain version) with its bound; returns their kernels-line rows."""
+    import torch
+    from repro_torch.kernels.tick_fused import (scatter_partition,
+                                                tick_scatter_finish,
+                                                tick_scatter_finish_twin,
+                                                tick_scatter_rows,
+                                                tick_scatter_rows_twin)
+    sent, w, U, upd, wgt, any_g, done, eta = sargs
+    C, D = sent.shape
+    G = upd.shape[0]
+    rb, nblk = scatter_partition(C)
+    rargs = (sent, w, U, wgt, done, eta)
+    w1, u1, part = tick_scatter_rows(*rargs, dp_on=True, rows_per_block=rb)
+    if not (bits_equal(w1, fused[0]) and bits_equal(u1, fused[1])):
+        fail("tick_scatter_rows: w' / U' differ from the fused launch's")
+    tw = tick_scatter_rows_twin(*(a.cpu() for a in rargs), dp_on=True,
+                                rows_per_block=rb)
+    if not bits_equal(part.cpu(), tw[2]):
+        fail("tick_scatter_rows: partials are not its twin's bits")
+    ring = tick_scatter_finish(part, upd, any_g)
+    if not bits_equal(ring, fused[2]):
+        fail("tick_scatter_finish over the rows pass's partials is not the "
+             "fused tick_scatter's ring rows, bit for bit")
+    if not bits_equal(ring.cpu(), tick_scatter_finish_twin(
+            part.cpu(), upd.cpu(), any_g.cpu())):
+        fail("tick_scatter_finish is not its twin's bits")
+    lo, hi = SPLIT_ROWS
+    off, b0 = lo % rb, lo // rb
+
+    def rows(a, b):
+        return (sent[a:b], w[a:b], U[a:b], wgt[:, a:b], done[a:b], eta[a:b])
+
+    _, _, head = tick_scatter_rows(*rows(lo - off, lo), dp_on=True,
+                                   rows_per_block=rb)
+    carry = head[0].contiguous()
+    _, _, piece = tick_scatter_rows(*rows(lo, hi), dp_on=True,
+                                    rows_per_block=rb, row_offset=off,
+                                    carry=carry)
+    k = (hi - (lo - off)) // rb            # blocks ending before hi
+    if not bits_equal(piece[:k], part[b0:b0 + k]):
+        fail("tick_scatter_rows at a row offset from a carry: partials "
+             "differ from the whole's")
+    tp = tick_scatter_rows_twin(*(a.cpu() for a in rows(lo, hi)),
+                                dp_on=True, rows_per_block=rb,
+                                row_offset=off, carry=carry.cpu())
+    if not bits_equal(piece.cpu(), tp[2]):
+        fail("tick_scatter_rows at a row offset: not its twin's bits")
+    mixed = torch.cat([part[:b0], piece[:k], part[b0 + k:]])
+    if not bits_equal(tick_scatter_finish(mixed, upd, any_g), fused[2]):
+        fail("tick_scatter_finish over the cut rows' partials is not the "
+             "fused tick_scatter's ring rows")
+    print(f"phase kernels: (c) tick_scatter_rows over rows [{lo}, {hi}) at "
+          f"row offset {off} of {rb}-row blocks from a carry: {k} partials "
+          f"bit for bit the whole's, the cut one its twin's; the finish "
+          f"bit for bit the fused launch")
+    nd = int(done.sum())
+    r_ms = median_ms(lambda: tick_scatter_rows(*rargs, dp_on=True,
+                                               rows_per_block=rb))
+    r_pms = median_ms(lambda: tick_scatter_rows_twin(
+        *rargs, dp_on=True, rows_per_block=rb), n=3, reps=3)
+    f_ms = median_ms(lambda: tick_scatter_finish(part, upd, any_g))
+    f_pms = median_ms(lambda: tick_scatter_finish_twin(part, upd, any_g),
+                      n=3, reps=3)
+    rbms, rby = rows_bound(C, D, G, nd, nblk)
+    fbms, fby = finish_bound(nblk, G, D)
+    print(f"phase kernels: tick_scatter_rows C={C} D={D} G={G} blocks="
+          f"{nblk} ms={r_ms} bound_ms={rbms} ({rby}) plain_ms={r_pms}; "
+          f"tick_scatter_finish ms={f_ms} bound_ms={fbms} ({fby}) "
+          f"plain_ms={f_pms}")
+    err = float((ring - plain[2]).abs().max())
+    src = "src/repro_torch/csrc/tick_fused.cu"
+    rep = "src/repro/kernels/tick_fused/kernel.py:129"
+    return [dict(name="tick_scatter_rows", route="cuda", source=src,
+                 replaces=rep, max_abs_err=0.0, ms=r_ms, plain_ms=r_pms,
+                 bound_ms=rbms, bound_by=rby, library_ms=None,
+                 plain="tick_scatter_rows_twin"),
+            dict(name="tick_scatter_finish", route="cuda", source=src,
+                 replaces=rep, max_abs_err=0.0, ms=f_ms, plain_ms=f_pms,
+                 bound_ms=fbms, bound_by=fby, library_ms=None,
+                 plain="tick_scatter_finish_twin",
+                 max_abs_err_vs_torch_sum=err)]
 
 
 def server_bound(D: int, A: int, *, arr: bool, hit: bool = False,
@@ -850,8 +986,10 @@ def phase_kernels(dev, logs):
                    source="src/repro_torch/csrc/tick_fused.cu",
                    replaces="src/repro/kernels/tick_fused/kernel.py:129",
                    max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                   bound_by=by, library_ms=None)
+                   bound_by=by, library_ms=None, on_path=False,
+                   path_route="tick_scatter_rows + tick_scatter_finish")
     out.append(scatter)
+    out += scatter_pass_rows(sargs, kw1, pw)
 
     # -- cohort_clip_noise: clip > 0 and clip = 0 -------------------------
     u = 0.05 * randn(C, D) * (2.0 * rand(C))[:, None]   # norms in [0, 2.8]
@@ -992,11 +1130,28 @@ def phase_kernels(dev, logs):
     ms, bms, by = times[(0.5, True)]
     pms = median_ms(lambda: cohort_clip_noise_prng_ref(
         u, key, wts, mask, clip=0.0, noise_scale=ns), n=3, reps=3)
+    # (c) a rank's rows [lo, hi) with row_offset: the whole draw's rows
+    lo, hi = SPLIT_ROWS
+    whole, _ = cohort_clip_noise_prng(u, key, wts, mask, clip=1.0,
+                                      noise_scale=ns, with_agg=False)
+    rows, _ = cohort_clip_noise_prng(u[lo:hi], key, wts[lo:hi],
+                                     mask[lo:hi], clip=1.0, noise_scale=ns,
+                                     with_agg=False, row_offset=lo)
+    if not bits_equal(rows, whole[lo:hi]):
+        fail("cohort_clip_noise_prng at a row offset is not the whole "
+             "draw's rows, bit for bit")
+    off_ms = median_ms(lambda: cohort_clip_noise_prng(
+        u[lo:hi], key, wts[lo:hi], mask[lo:hi], clip=0.0, noise_scale=ns,
+        with_agg=False, row_offset=lo))
+    print(f"phase kernels: (c) cohort_clip_noise_prng rows [{lo}, {hi}) at "
+          f"row_offset={lo}: bit for bit the whole draw's rows; "
+          f"ms={off_ms} (whole, without agg: {times[(0.5, False)][0]})")
     out.append(dict(name="cohort_clip_noise_prng", route="cuda",
                     source="src/repro_torch/csrc/cohort_dp.cu",
                     replaces="src/repro/kernels/cohort_dp/kernel.py:139",
                     max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                    bound_by=by, library_ms=None))
+                    bound_by=by, library_ms=None,
+                    ms_row_offset_rows=[lo, hi], ms_row_offset=off_ms))
 
     # -- FedAsync's shapes: bucket_apply at A = R, tick_scatter at G = L*R
     R = B
@@ -1055,9 +1210,10 @@ def phase_kernels(dev, logs):
 def make_sim(dev, X, y, *, C, sizes, etas, d, seed, block, l2,
              dp_clip=0.0, dp_sigma=0.0, dp_round_clip=0.0, sample_seed=0,
              scenario=None, strategy=None, dp_rng="operand", host=False,
-             trace=None):
-    """The device engine, or with ``host`` the host-loop engine (operand
-    noise only); ``trace`` is the engines' JSONL ``trace=``."""
+             trace=None, mesh=None):
+    """The device engine (over ``mesh``, a ``clients`` mesh, where given),
+    or with ``host`` the host-loop engine (operand noise only); ``trace``
+    is the engines' JSONL ``trace=``."""
     import repro_torch as rt
     task = rt.LogRegTask(X, y, l2=l2, dp_clip=dp_clip, dp_sigma=dp_sigma,
                          sample_seed=sample_seed)
@@ -1066,7 +1222,7 @@ def make_sim(dev, X, y, *, C, sizes, etas, d, seed, block, l2,
               scenario=scenario, strategy=strategy, device=dev, trace=trace)
     if host:
         return rt.CohortSimulator(task, **kw)
-    return rt.DeviceCohortSimulator(task, dp_rng=dp_rng, **kw)
+    return rt.DeviceCohortSimulator(task, dp_rng=dp_rng, mesh=mesh, **kw)
 
 
 def timed_run(sim, rounds, eval_every):
@@ -1120,30 +1276,37 @@ def count_masked(eng):
 
 
 class count_normal_draws:
-    """Count ``repro_torch.prng.normal`` calls (the operand noise draw)
-    while the context is open."""
+    """Count ``repro_torch.prng.normal`` / ``normal_rows`` calls (the
+    operand noise draw) while the context is open."""
+
+    NAMES = ("normal", "normal_rows")
 
     def __enter__(self):
         from repro_torch import prng
-        self.n, self._inner = 0, prng.normal
+        self.n = 0
+        self._inner = {name: getattr(prng, name) for name in self.NAMES}
 
-        def counted(*a, **k):
-            self.n += 1
-            return self._inner(*a, **k)
+        def counting(fn):
+            def counted(*a, **k):
+                self.n += 1
+                return fn(*a, **k)
+            return counted
 
-        prng.normal = counted
+        for name, fn in self._inner.items():
+            setattr(prng, name, counting(fn))
         return self
 
     def __exit__(self, *exc):
         from repro_torch import prng
-        prng.normal = self._inner
+        for name, fn in self._inner.items():
+            setattr(prng, name, fn)
 
 
 def int_state(eng):
     """The integer protocol state: every int32 state field, the
     iteration census, on the CPU."""
     import torch
-    st = eng.state
+    st = eng.local_state
     return {f: getattr(st, f).cpu() for f in st._fields
             if getattr(st, f).dtype == torch.int32}
 
@@ -1209,13 +1372,14 @@ def main_inputs():
 
 def phase_main(dev, X, y, kw):
     """Phase 3: the main run, with the kernels' launch counts; then the
-    same configuration with the noise generated in the kernel."""
+    same configuration with the noise generated in the kernel.  Returns
+    the operand run's launches and both runs' fingerprints."""
     import torch
     from repro_torch.kernels import launches
     from repro_torch.telemetry import check_ops
 
     m = MAIN
-    out = {}
+    out, fps = {}, {}
     for dp_rng in ("operand", "in_kernel"):
         sim = make_sim(dev, X, y, block=m["block"], dp_rng=dp_rng, **kw)
         eng = sim.engine
@@ -1246,8 +1410,7 @@ def phase_main(dev, X, y, kw):
                         else "cohort_clip_noise_prng")
         other = ("cohort_clip_noise_prng" if dp_rng == "operand"
                  else "cohort_clip_noise")
-        for name in ("bucket_apply", "tick_deliver", "tick_scatter",
-                     noise_kernel):
+        for name in (*TICK_PATH, noise_kernel):
             if counts[name] <= 0:
                 fail(f"kernel {name} was not launched on the main run "
                      f"({dp_rng})")
@@ -1270,9 +1433,8 @@ def phase_main(dev, X, y, kw):
             print(f"phase main: dp rows={len(tel.dp or [])} "
                   f"max_epsilon={max(eps) if eps else None}")
         out[dp_rng] = counts
-        if dp_rng == "operand":
-            fp = fingerprint(sim, res)
-    return out["operand"], fp
+        fps[dp_rng] = fingerprint(sim, res)
+    return out["operand"], fps
 
 
 def phase_scenarios(dev, X, y, kw):
@@ -1346,8 +1508,7 @@ def phase_scenarios(dev, X, y, kw):
                                          loss)
             if dp_rng == "operand":
                 fps[sc["tag"]] = fingerprint(sim, res)
-    for name in ("bucket_apply", "tick_deliver", "tick_scatter",
-                 "cohort_clip_noise_prng"):
+    for name in (*TICK_PATH, "cohort_clip_noise_prng"):
         if path_counts[name] <= 0:
             fail(f"kernel {name} was not launched on the scenario runs")
     for sc in SCENARIOS:
@@ -1525,15 +1686,11 @@ def scenario_kw(sc):
     return dict(block=sc["block"], scenario=scn, strategy=strat)
 
 
-def phase_small_scenario(dev):
-    """Phase 5: a small stratified + overflow + DP case (the reference's
-    overflow scenario with FedAsync) on the card against the port's
-    plain CPU run, with both noise sources."""
-    import numpy as np
-    import torch
+def small_scenario_inputs():
+    """Phase 5's case: the reference's overflow scenario (latency U(1, 200)
+    s over a ring of 8 ticks) with FedAsync and DP, 6 clients."""
     import repro_torch as rt
     from repro_torch.scenarios import LatencyTable, Scenario
-
     X, y = rt.make_binary_dataset(300, 12, seed=9, noise=0.3)
     scn = Scenario("tail", LatencyTable.from_uniform(1.0, 200.0, 16),
                    ring_cap=8)
@@ -1541,6 +1698,17 @@ def phase_small_scenario(dev):
               l2=1.0 / 300, dp_clip=0.1, dp_sigma=2.0, dp_round_clip=0.5,
               sample_seed=21, scenario=scn, strategy="fedasync",
               rounds=3, eval_every=1)
+    return X, y, kw
+
+
+def phase_small_scenario(dev):
+    """Phase 5: a small stratified + overflow + DP case (the reference's
+    overflow scenario with FedAsync) on the card against the port's
+    plain CPU run, with both noise sources."""
+    import numpy as np
+    import torch
+
+    X, y, kw = small_scenario_inputs()
     for dp_rng in ("in_kernel", "operand"):
         gsim, gpu, wall = run_sim(dev, X, y, dp_rng=dp_rng, **kw)
         csim, cpu, _ = run_sim(torch.device("cpu"), X, y, dp_rng=dp_rng,
@@ -1574,7 +1742,8 @@ def fingerprint(sim, res):
     the ``w``/``U``/``v`` blocks (kept on the card)."""
     import numpy as np
     import torch
-    st, tel = sim.engine.state, res["telemetry"]
+    eng, tel = sim.engine, res["telemetry"]
+    st = getattr(eng, "local_state", eng.state)     # a rank's tensors
 
     def ints(x):
         x = x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
@@ -1616,8 +1785,7 @@ def same_run(host, device, what: str) -> None:
             fail(f"{what}: {f} differs between the two runs")
 
 
-HOST_PATH = ("bucket_apply", "tick_deliver", "tick_scatter",
-             "cohort_clip_noise")
+HOST_PATH = (*TICK_PATH, "cohort_clip_noise")
 # the kernels of phase 13's model-scale cohort runs (rows 1-5)
 TRAIN_PATH = HOST_PATH + ("cohort_clip_noise_prng",)
 
@@ -1679,6 +1847,184 @@ def phase_host_engine(dev, X, y, kw, main_fp, scenario_fps):
         fail(f"host_engine: kernels {missing} not launched")
     print(f"phase host_engine: launches over the host runs {total}")
     return total
+
+
+# phase 16: the ported examples, each started as users start it, at its
+# reference size on the card
+EXAMPLES = ("torch_quickstart", "torch_cohort_quickstart",
+            "torch_dp_federated", "torch_biased_clients",
+            "torch_llm_fl_pretrain")
+EXAMPLES_TIMEOUT_S = 300
+EXAMPLES_DEVICE = "cuda"
+
+
+def start_examples(env) -> dict:
+    """Start every ported example (default sizes, on the card), all at
+    once: they are host-bound Python loops, so they overlap.  Each one's
+    output goes to ``build/examples/<name>.txt``."""
+    out_dir = os.path.join(HERE, "build", "examples")
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name in EXAMPLES:
+        path = os.path.join(out_dir, f"{name}.txt")
+        with open(path, "w") as log:
+            procs[name] = (path, subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "examples", f"{name}.py"),
+                 "--device", EXAMPLES_DEVICE], env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+    return procs
+
+
+def join_examples(procs: dict, t0: float) -> dict:
+    """Wait for the examples (all killed past ``EXAMPLES_TIMEOUT_S`` from
+    ``t0``, their start); each must exit 0.  Returns each one's wall in
+    seconds, from the start to its exit."""
+    walls, pending = {}, dict(procs)
+    while pending:
+        for name, (path, p) in list(pending.items()):
+            if p.poll() is not None:
+                walls[name] = time.perf_counter() - t0
+                del pending[name]
+        if time.perf_counter() - t0 > EXAMPLES_TIMEOUT_S:
+            for _, p in procs.values():
+                p.kill()
+            fail(f"examples {sorted(pending)} still running after "
+                 f"{EXAMPLES_TIMEOUT_S} s")
+        time.sleep(0.05)
+    for name, (path, p) in procs.items():
+        with open(path) as f:
+            out = f.read()
+        tail = "\n".join(out.strip().splitlines()[-6:])
+        print(f"phase cohort_mesh: example {name} exit={p.returncode} "
+              f"wall_s={walls[name]}\n{tail}")
+        if p.returncode != 0:
+            fail(f"example {name} exited {p.returncode}:\n{out[-3000:]}")
+    return walls
+
+
+def mesh_run(dev, X, y, kw, mesh, what: str, rounds: int, every: int,
+             **extra):
+    """One device-engine run over ``mesh`` with its collectives logged a
+    tick: (sim, res, wall, [(completion tick?, counts)])."""
+    sim = make_sim(dev, X, y, mesh=mesh, **extra, **kw)
+    eng = sim.engine
+    log, tick = [], eng._tick
+
+    def logged(st, t, sk0):
+        before = dict(eng.collectives)
+        st, p = tick(st, t, sk0)
+        log.append((bool(p.any_done),
+                    {k: eng.collectives[k] - before[k] for k in before}))
+        return st, p
+
+    eng._tick = logged
+    res, wall = timed_run(sim, rounds, every)
+    if eng.host_syncs["tick"] != res["telemetry"].ticks:
+        fail(f"cohort_mesh {what}: {eng.host_syncs['tick']} host syncs for "
+             f"{res['telemetry'].ticks} ticks")
+    return sim, res, wall, log
+
+
+def check_placements(eng, mesh, what: str) -> None:
+    """Every state field a DTensor on ``mesh`` placed as
+    ``cohort_shardings`` says, a view of the rank's tensor."""
+    from repro_torch.sharding import cohort_shardings
+    st, local = eng.state, eng.local_state
+    for f, (_, pl) in cohort_shardings(mesh, eng.C).items():
+        t = getattr(st, f)
+        if (t.device_mesh != mesh or tuple(t.placements) != tuple(pl)
+                or t.to_local().data_ptr() != getattr(local, f).data_ptr()):
+            fail(f"cohort_mesh {what}: field {f} placed {t.placements} on "
+                 f"{t.device_mesh}, want {pl} on the clients mesh (a view)")
+
+
+def per_tick(log) -> dict:
+    """The most collectives of each kind on a tick with and without
+    completions."""
+    out = {}
+    for done, counts in log:
+        k = "completion_tick" if done else "other_tick"
+        out[k] = {c: max(n, out.get(k, {}).get(c, 0))
+                  for c, n in counts.items()}
+    return out
+
+
+def phase_cohort_mesh(dev, X, y, kw, main_fps):
+    """Phase 16: the device engine over a ``clients`` mesh of one NCCL
+    rank (the machine has one card): (a) the main run with operand and
+    with in-kernel noise, each bit for bit phase main's ``mesh=None`` run
+    (``fingerprint``: integers, census, losses as bytes, w / U / v), the
+    state's placements ``cohort_shardings``', one host read a tick and
+    the collectives a tick printed; (b) phase 5's small overflow +
+    FedAsync case over the mesh, bit for bit its ``mesh=None`` run; with
+    the ported examples running meanwhile, each as users start it.
+    Returns the walls."""
+    import torch.distributed as dist
+    from repro_torch.kernels import launches
+    from repro_torch.launch.mesh import _free_port
+    from repro_torch.sharding import cohort_mesh
+
+    t0 = time.perf_counter()
+    procs = start_examples(dict(os.environ,
+                                PYTHONPATH=os.path.join(HERE, "src")))
+    own = not dist.is_initialized()
+    if own:
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+            world_size=1)
+    try:
+        mesh = cohort_mesh(dev)
+        m = MAIN
+        for dp_rng in ("operand", "in_kernel"):
+            what = f"(a) main ({dp_rng})"
+            launches.reset()
+            sim, res, wall, log = mesh_run(
+                dev, X, y, kw, mesh, what, m["rounds"], m["rounds"] // 2,
+                block=m["block"], dp_rng=dp_rng)
+            counts = dict(launches.LAUNCHES)
+            eng = sim.engine
+            noise = ("cohort_clip_noise" if dp_rng == "operand"
+                     else "cohort_clip_noise_prng")
+            missing = [k for k in (*TICK_PATH, noise) if counts[k] <= 0]
+            if missing:
+                fail(f"cohort_mesh {what}: kernels {missing} not launched")
+            same_run(fingerprint(sim, res), main_fps[dp_rng],
+                     f"cohort_mesh {what}")
+            check_placements(eng, mesh, what)
+            print(f"phase cohort_mesh {what}: ranks={mesh.size()} "
+                  f"cut={eng.axis.sharded} ticks={res['telemetry'].ticks} "
+                  f"host_syncs={eng.host_syncs} "
+                  f"collectives={eng.collectives} "
+                  f"max_collectives_per_tick={per_tick(log)} wall_s={wall} "
+                  f"launches={counts}; bit for bit the mesh=None run, "
+                  f"placements cohort_shardings'")
+        Xs, ys, skw = small_scenario_inputs()
+        rounds, every = skw.pop("rounds"), skw.pop("eval_every")
+        for dp_rng in ("in_kernel", "operand"):
+            what = f"(b) small scenario ({dp_rng})"
+            base = make_sim(dev, Xs, ys, dp_rng=dp_rng, **skw)
+            bres, _ = timed_run(base, rounds, every)
+            sim, res, wall, log = mesh_run(dev, Xs, ys, skw, mesh, what,
+                                           rounds, every, dp_rng=dp_rng)
+            if sim.engine.F <= 0 or res["final"]["far_messages"] <= 0:
+                fail(f"cohort_mesh {what}: no far-tier traffic")
+            same_run(fingerprint(sim, res), fingerprint(base, bres),
+                     f"cohort_mesh {what}")
+            check_placements(sim.engine, mesh, what)
+            print(f"phase cohort_mesh {what}: far_messages="
+                  f"{res['final']['far_messages']} ticks="
+                  f"{res['telemetry'].ticks} max_collectives_per_tick="
+                  f"{per_tick(log)} wall_s={wall}; bit for bit the "
+                  f"mesh=None run")
+        mesh_wall = time.perf_counter() - t0
+    finally:
+        if own:
+            dist.destroy_process_group()
+    walls = join_examples(procs, t0)
+    total = time.perf_counter() - t0
+    print(f"phase cohort_mesh: (a)+(b) wall_s={mesh_wall} examples "
+          f"wall_s={walls} phase wall_s={total}")
+    return walls
 
 
 # the event simulator's card run: the three-way-parity configuration of
@@ -4108,7 +4454,7 @@ def main() -> int:
     phase_census(dev)
     print(f"phase census: wall_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
-    counts, main_fp = phase_main(dev, X, y, kw)
+    counts, main_fps = phase_main(dev, X, y, kw)
     print(f"phase main: wall_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     scn_counts, scn_fps = phase_scenarios(dev, X, y, kw)
@@ -4118,9 +4464,14 @@ def main() -> int:
     print(f"phase small_scenario_agreement: wall_s="
           f"{time.perf_counter() - t0}")
     t0 = time.perf_counter()
-    host_counts = phase_host_engine(dev, X, y, kw, main_fp, scn_fps)
-    del main_fp, scn_fps
+    host_counts = phase_host_engine(dev, X, y, kw, main_fps["operand"],
+                                    scn_fps)
+    del scn_fps
     print(f"phase host_engine: wall_s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    phase_cohort_mesh(dev, X, y, kw, main_fps)
+    del main_fps
+    print(f"phase cohort_mesh: wall_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     phase_event(dev, X, y)
     print(f"phase event: wall_s={time.perf_counter() - t0}")
@@ -4172,7 +4523,8 @@ def main() -> int:
     # N), the model API (phase 12) for attention and the SSD (the one-layer
     # phases' counts beside them)
     path_counts = dict(bucket_apply=scn_counts, tick_deliver=scn_counts,
-                       tick_scatter=scn_counts,
+                       tick_scatter=scn_counts, tick_scatter_rows=scn_counts,
+                       tick_scatter_finish=scn_counts,
                        cohort_clip_noise_prng=scn_counts,
                        clip_accumulate=dp_counts,
                        flash_attention=model_counts, ssd_scan=model_counts)
@@ -4181,7 +4533,7 @@ def main() -> int:
         k["launches"] = path_counts.get(k["name"], counts)[k["name"]]
         if k["name"] in layer_counts:
             k["launches_layer"] = layer_counts[k["name"]][k["name"]]
-        if k["name"] in ("bucket_apply", "tick_deliver", "tick_scatter"):
+        if k["name"] in ("tick_scatter", *TICK_PATH):
             k["launches_main"] = counts[k["name"]]
         if k["name"] in HOST_PATH:
             k["launches_host"] = host_counts[k["name"]]
@@ -4197,7 +4549,10 @@ def main() -> int:
             k["launches_model"] = train_counts["device"][k["name"]]
             k["launches_model_host"] = train_counts["host"].get(k["name"],
                                                                 0)
-            k.update(train["kernels"][k["name"]])
+            k.update(train["kernels"].get(k["name"], {}))
+        if k["name"] == "tick_scatter":
+            # the fused launch at model D (the engines launch its passes)
+            k.update(train["kernels"]["tick_scatter"])
             k["launches_trace"] = trace_counts[k["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -42,6 +42,18 @@ next tick.  Strategies: the paper's, FedAsync (sender-k stratified
 flushed every ``buffer_size`` arrivals).  DP noise: ``operand`` (the
 reference's threefry normals, drawn by torch ops) or ``in_kernel``
 (counter-based normals generated inside the CUDA kernel).
+
+Over a ``clients`` mesh (``mesh=``, a 1-D ``DeviceMesh`` from
+``repro_torch.sharding.cohort_mesh``) each rank holds its rows of the
+``[C, ...]`` fields (``cohort_shardings``: ``Shard(0)``, ``bc_at``
+``Shard(1)``) and a copy of the rest, and runs the tick on its local
+rows with the collectives of ``cohort/clients.py`` made explicitly: one
+int32 all-reduce of the tick's cross-client counts before the host
+read, and on completion ticks the ring and far sums' block partials
+under the global partition (a straddling block's running sum passed to
+the next rank) in one all-gather with the ring counts.  The result is
+the one-device engine's, bit for bit, at every world size; ``state``
+shows the fields as DTensors on the mesh.
 """
 from __future__ import annotations
 
@@ -52,16 +64,17 @@ import torch
 
 from repro_torch import prng
 from repro_torch.analysis.salts import NOISE_SALT
+from repro_torch.cohort.clients import ClientAxis
 from repro_torch.cohort.state import (FRAC_BITS, DeviceCohortState,
-                                      default_max_ticks, next_pow2,
-                                      pad_sizes, speed_accrual)
+                                      default_max_ticks, dtensor_views,
+                                      next_pow2, pad_sizes, speed_accrual)
 from repro_torch.core.strategies import get_strategy, ring_decay
 from repro_torch.core.tasks import validate_dp_knobs
 from repro_torch.devices import resolve_device
 from repro_torch.kernels.cohort_dp import (cohort_clip_noise,
                                            cohort_clip_noise_prng)
 from repro_torch.kernels.tick_fused import (server_apply, tick_deliver,
-                                            tick_scatter)
+                                            tick_scatter_finish)
 from repro_torch.scenarios import (ScenarioPlan, get_scenario,
                                    legacy_latency_scenario)
 from repro_torch.telemetry import (STALE_BINS, PhaseTimer, build_report,
@@ -96,6 +109,7 @@ class _FarPlan(NamedTuple):
     grp: torch.Tensor       # [V, C] bool: finished clients per far value
     slot_of_q: torch.Tensor  # [Q] int64: the group each written slot takes
     written_q: torch.Tensor  # [Q] bool: slots written this tick
+    any_r: torch.Tensor     # [V, R] bool: a group's sender-k strata used
 
 
 class DeviceCohortEngine:
@@ -108,10 +122,21 @@ class DeviceCohortEngine:
                  dp_sigma: float = 0.0, dp_clip: float = 0.0,
                  dp_round_clip: float = 0.0, scenario=None, trace=None,
                  dp_delta: float = 1e-5, strategy=None,
-                 dp_rng: str = "operand", fuse_ticks: bool = True):
+                 dp_rng: str = "operand", fuse_ticks: bool = True,
+                 mesh=None):
         self.ctask = ctask
         self.device = dev = ctask.device
         C = self.C = ctask.C
+        # this rank's clients [lo, hi): all of them without a mesh or
+        # where C does not divide over the ranks (every rank then runs
+        # the whole population, as the reference does)
+        self.mesh = mesh
+        self.axis = axis = ClientAxis(mesh, C)
+        lo, hi = axis.lo, axis.hi
+        if axis.sharded and not hasattr(ctask, "for_clients"):
+            raise TypeError(f"{type(ctask).__name__} has no for_clients: "
+                            f"it cannot run on a cut client axis")
+        self.ltask = ctask.for_clients(lo, hi) if axis.sharded else ctask
         self.D = ctask.D
         self.d_gate = int(d)
         self.block = int(block)
@@ -133,6 +158,7 @@ class DeviceCohortEngine:
         self.dt = self.block / float(self.speeds.max())
         self._plan = ScenarioPlan(scn, C=C, seed=self.seed, dt=self.dt,
                                   device=dev)
+        self._lplan = self._plan.for_clients(lo, hi)
         self.sizes = pad_sizes(sizes_per_client, C)
         self.etas = np.asarray(round_stepsizes, np.float64)
 
@@ -148,7 +174,8 @@ class DeviceCohortEngine:
         self.noise_scale = self.dp_clip * self.dp_sigma
         self.fuse_ticks = bool(fuse_ticks)
         self.dp_delta = float(dp_delta)
-        self._trace = open_trace(trace)
+        self._trace_on = trace is not None
+        self._trace = open_trace(trace, axis.rank)
 
         # ring capacities: L covers latency offsets up to the plan's ring
         # boundary (Scenario.ring_cap); offsets past it go to the Q-slot
@@ -169,9 +196,11 @@ class DeviceCohortEngine:
         # constants of the tick, built once on the device
         R, L = self.R, self.L
         self._etas_dev = torch.tensor(self.etas, dtype=F32, device=dev)
-        self._sizes_dev = torch.tensor(self.sizes, dtype=I32, device=dev)
+        self._sizes_dev = torch.tensor(self.sizes[lo:hi], dtype=I32,
+                                       device=dev)
         self._accrual_dev = torch.tensor(
-            speed_accrual(self.speeds, self.block), dtype=I32, device=dev)
+            speed_accrual(self.speeds, self.block)[lo:hi], dtype=I32,
+            device=dev)
         tau = (np.arange(R)[:, None] - np.arange(R)[None, :]) & (R - 1)
         self._tau_bins = torch.tensor(np.minimum(tau, STALE_BINS - 1),
                                       dtype=torch.int64, device=dev)
@@ -180,6 +209,9 @@ class DeviceCohortEngine:
         self._ar_Q = torch.arange(self.Q, dtype=torch.int64, device=dev)
         self._far_vals = torch.tensor(far_vals, dtype=I32, device=dev)
         self._ones1 = torch.ones((1,), dtype=F32, device=dev)
+        self._far_on = torch.ones((len(far_vals) * (R if self.strategy
+                                                     .stratified else 1),),
+                                  dtype=torch.bool, device=dev)
         self._true = torch.ones((), dtype=torch.bool, device=dev)
         self._false = torch.zeros((), dtype=torch.bool, device=dev)
         self._iter_inc = torch.tensor([[1, 0], [1, 1]], dtype=I32,
@@ -197,11 +229,32 @@ class DeviceCohortEngine:
         self._off: Optional[torch.Tensor] = None
         #: host reads made by the tick loop: one per tick, one per segment
         self.host_syncs = {"tick": 0, "segment": 0}
-        self.state = self._init_state()
+        #: collectives made over the mesh, by kind (``ClientAxis``)
+        self.collectives = axis.collectives
+        self._st = self._init_state()
         self.history: List[Dict[str, float]] = []
 
+    # -- the state: local rows, or DTensor views over the mesh -------------
+    @property
+    def state(self) -> DeviceCohortState:
+        """The state; over a mesh, every field a DTensor view of this
+        rank's tensor (no copy), placed as ``cohort_shardings`` says."""
+        if self.mesh is None:
+            return self._st
+        return dtensor_views(self._st, self.mesh, self.C)
+
+    @state.setter
+    def state(self, st: DeviceCohortState) -> None:
+        self._st = DeviceCohortState(*(
+            t.to_local() if hasattr(t, "to_local") else t for t in st))
+
+    @property
+    def local_state(self) -> DeviceCohortState:
+        """This rank's tensors (the whole state without a mesh)."""
+        return self._st
+
     def _init_state(self) -> DeviceCohortState:
-        C, D, L, R, B, Q = self.C, self.D, self.L, self.R, self.B, self.Q
+        C, D, L, R, B, Q = self.axis.n, self.D, self.L, self.R, self.B, self.Q
         dev = self.device
         v0 = self.ctask.init_flat().to(F32)
         strat = self.strategy
@@ -229,19 +282,21 @@ class DeviceCohortEngine:
     def _update_offsets(self, i: torch.Tensor) -> torch.Tensor:
         """``plan.update_ticks(i)``, drawn once per distinct ``i`` tensor."""
         if self._off_i is not i:
-            self._off = self._plan.update_ticks(i)
+            self._off = self._lplan.update_ticks(i)
             self._off_i = i
         return self._off
 
     # -- one protocol tick --------------------------------------------------
     def _tick(self, st: DeviceCohortState, t: int, sk0: int):
         """Advance ``st`` by tick ``t`` (= st.tick + 1); ``sk0`` is the
-        pre-tick ``server_k``.  Returns the new state and the predicates."""
+        pre-tick ``server_k``.  Returns the new state and the predicates.
+        Over a cut client axis ``st`` holds this rank's rows: the counts
+        across clients are summed over the ranks before the host read."""
         C, L, R, B, Q = self.C, self.L, self.R, self.B, self.Q
         d_gate, block = self.d_gate, self.block
         sizes, accrual = self._sizes_dev, self._accrual_dev
         i_cap = sizes.shape[1] - 1
-        strat, plan = self.strategy, self._plan
+        strat, plan, axis = self.strategy, self._lplan, self.axis
         far_tier = self.F > 0
 
         # ---- 1) integer phase ------------------------------------------
@@ -320,42 +375,30 @@ class DeviceCohortEngine:
                                               credit >> FRAC_BITS), 0)
         n = torch.clamp(n, min=0)
         credit = credit - (n << FRAC_BITS)
-        any_block = (n > 0).any()
+        n_block = (n > 0).sum(dtype=I32)
         h = st.h + n
 
         # round completions
         done = active & (h >= s_i)
-        any_done = done.any()
+        n_done = done.sum(dtype=I32)
         i_new = torch.where(done, st.i + 1, st.i)
         h_new = torch.where(done, 0, h)
         credit_new = torch.where(
             done, torch.clamp(credit, max=block << FRAC_BITS), credit)
 
-        ops = st.ops + torch.stack([
-            self._tick_one,                           # ticks
-            any_block.to(I32),                        # block_ticks
-            has_arr.to(I32),                          # bucket_applies
-            (ncasc > 0).to(I32),                      # cascade_ticks
-            (deliver_rows > 0).to(I32),               # deliver_ticks
-            deliver_rows,                             # deliver_rows
-            self._tick_zero,                          # ring_scatters
-            any_done.to(I32),                         # complete_ticks
-            self._tick_zero,                          # far_ticks
-            self._tick_zero,                          # far_groups
-        ])
-
         # far tier: updates whose latency reaches past the ring go to the
         # overflow bucket, one slot per distinct arrival tick
-        err, ovf_hwm, far_msgs = st.err, st.ovf_hwm, st.far_msgs
-        any_far, far = self._false, None
+        far_counts = []
         if far_tier:
             arr_off = self._update_offsets(st.i)
             far_mask = done & (arr_off >= L)
-            any_far = far_mask.any()
-            (ovf_at, ovf_cnt, ovf_ks, err, ovf_hwm, far_msgs, ops,
-             far) = self._far_plan(t, st.i, k, far_mask, any_far, ovf_at,
-                                   ovf_cnt, ovf_ks, err, ovf_hwm,
-                                   far_msgs, ops)
+            grp = far_mask[None, :] & (arr_off[None, :]
+                                       == self._far_vals[:, None])   # [V, C]
+            oh_r = (st.i & (R - 1))[:, None] == self._ar_R            # [C, R]
+            oh_s = (k & (R - 1))[:, None] == self._ar_R
+            far_counts = [far_mask.sum(dtype=I32), grp.sum(1, dtype=I32),
+                          (grp[:, :, None] & oh_r[None]).sum(1, dtype=I32),
+                          (grp[:, :, None] & oh_s[None]).sum(1, dtype=I32)]
 
         if self.fuse_ticks:
             # int-only preview of tick t + 1's block predicate on the
@@ -371,9 +414,40 @@ class DeviceCohortEngine:
                                 .to(torch.int64)[:, None])[:, 0]
             n2 = torch.where(active2, torch.minimum(s_i2 - h_new,
                                                     credit2 >> FRAC_BITS), 0)
-            next_no_block = ~(torch.clamp(n2, min=0) > 0).any()
+            n_next = (torch.clamp(n2, min=0) > 0).sum(dtype=I32)
         else:
-            next_no_block = self._false
+            n_next = self._tick_one
+
+        # the counts across clients, summed over the ranks: one
+        # all-reduce where the client axis is cut, nothing otherwise
+        (deliver_rows, n_block, n_done, n_next, *far_counts) = axis.allsum(
+            [deliver_rows, n_block, n_done, n_next, *far_counts])
+        any_block = n_block > 0
+        any_done = n_done > 0
+        next_no_block = (n_next == 0) if self.fuse_ticks else self._false
+
+        ops = st.ops + torch.stack([
+            self._tick_one,                           # ticks
+            any_block.to(I32),                        # block_ticks
+            has_arr.to(I32),                          # bucket_applies
+            (ncasc > 0).to(I32),                      # cascade_ticks
+            (deliver_rows > 0).to(I32),               # deliver_ticks
+            deliver_rows,                             # deliver_rows
+            self._tick_zero,                          # ring_scatters
+            any_done.to(I32),                         # complete_ticks
+            self._tick_zero,                          # far_ticks
+            self._tick_zero,                          # far_groups
+        ])
+
+        err, ovf_hwm, far_msgs = st.err, st.ovf_hwm, st.far_msgs
+        any_far, far = self._false, None
+        if far_tier:
+            far_n, grp_n, cnt, cnt_ks = far_counts
+            any_far = far_n > 0
+            (ovf_at, ovf_cnt, ovf_ks, err, ovf_hwm, far_msgs, ops,
+             far) = self._far_plan(t, grp, grp_n, cnt, cnt_ks, far_n,
+                                   any_far, ovf_at, ovf_cnt, ovf_ks, err,
+                                   ovf_hwm, far_msgs, ops)
 
         packed = torch.stack([ncasc, deliver_rows, any_block.to(I32),
                               any_done.to(I32), next_no_block.to(I32),
@@ -408,13 +482,13 @@ class DeviceCohortEngine:
              if preds.deliver_rows else st.w)
         U = st.U
         if preds.any_block:
-            w, U = self.ctask.run_block(w, U, st.i, st.h, n, eta,
+            w, U = self.ltask.run_block(w, U, st.i, st.h, n, eta,
                                         self.b_stat)
 
         messages, part, bytes_up = st.messages, st.part, st.bytes_up
         if preds.any_done:
             done_i = done.to(I32)
-            messages = messages + done_i.sum(dtype=I32)
+            messages = messages + n_done
             part = part + done_i
             bytes_up = bytes_up + done_i * self.upd_bytes
             # update latency addressed by (client, round): st.i is the
@@ -425,34 +499,48 @@ class DeviceCohortEngine:
             oh_l = (arr_slot[:, None] == self._ar_L) & near[:, None]  # [C, L]
             oh_r = (st.i & (R - 1))[:, None] == self._ar_R            # [C, R]
             oh_s = (k & (R - 1))[:, None] == self._ar_R
-            upd_cnt = upd_cnt + (oh_l[:, :, None] & oh_r[:, None, :]).sum(
-                dim=0, dtype=I32)
-            upd_ks = upd_ks + (oh_l[:, :, None] & oh_s[:, None, :]).sum(
-                dim=0, dtype=I32)
-            ops[OP_RING_SCATTERS] += oh_l.any(0).sum(dtype=I32)
+            oh_ls = oh_l[:, :, None] & oh_s[:, None, :]             # [C, L, R]
+            ring = torch.cat([
+                (oh_l[:, :, None] & oh_r[:, None, :]).sum(
+                    dim=0, dtype=I32).reshape(-1),
+                oh_ls.sum(dim=0, dtype=I32).reshape(-1),
+                oh_l.sum(dim=0, dtype=I32)])
             if self.dp_on:
                 sent = self._clip_noise(U, eta, done, t)
             else:
                 sent = U
             # the ring scatter: one row per near slot, or per (slot,
-            # sender-k stratum) under FedAsync, sl-major
+            # sender-k stratum) under FedAsync, sl-major; then, on ticks
+            # that route updates past the ring, the far groups' rows
             if strat.stratified:
-                masks = (oh_l[:, :, None] & oh_s[:, None, :]).reshape(
-                    C, L * R).T
+                masks = oh_ls.reshape(-1, L * R).T
                 rows = upd_kvec.reshape(L * R, self.D)
             else:
                 masks = oh_l.T
                 rows = upd_vec
+            G = rows.shape[0]
             wgt = eta[None, :] * masks.to(F32)                      # [G, C]
-            w, U, rows = tick_scatter(sent, w, U, rows, wgt, masks.any(1),
-                                      done, eta, dp_on=self.dp_on)
-            if strat.stratified:
-                upd_kvec = rows.reshape(L, R, self.D)
-            else:
-                upd_vec = rows
             if preds.any_far:
-                ovf_vec, ovf_kvec = self._far_insert(sent, eta, k, far,
-                                                     ovf_vec, ovf_kvec)
+                wgt = torch.cat([wgt, self._far_weights(eta, k, far)])
+            # the rows pass under the whole axis's partition, its block
+            # partials (and the ring counts) gathered from every rank
+            w, U, partial, ring = axis.partials(
+                sent, w, U, wgt, done, eta, dp_on=self.dp_on, ints=ring)
+            c_lr, c_ls, c_l = ring.split([L * R, L * R, L])
+            upd_cnt = upd_cnt + c_lr.reshape(L, R)
+            upd_ks = upd_ks + c_ls.reshape(L, R)
+            ops[OP_RING_SCATTERS] += (c_l > 0).sum(dtype=I32)
+            any_g = (c_ls if strat.stratified else c_l) > 0
+            if preds.any_far:
+                any_g = torch.cat([any_g, self._far_on])
+            out = tick_scatter_finish(partial, rows, any_g)
+            if strat.stratified:
+                upd_kvec = out[:G].reshape(L, R, self.D)
+            else:
+                upd_vec = out[:G]
+            if preds.any_far:
+                ovf_vec, ovf_kvec = self._far_insert(out[G:], far, ovf_vec,
+                                                     ovf_kvec)
 
         if not preds.any_done:
             i_new = st.i        # same tensor: the update draws stay cached
@@ -470,15 +558,20 @@ class DeviceCohortEngine:
 
     def _clip_noise(self, U, eta, done, t: int):
         """Round-completion DP of the finishing rows, without the kernels'
-        weighted sum (agg): the ring scatter re-weights by arrival slot."""
+        weighted sum (agg): the ring scatter re-weights by arrival slot.
+        The normals of this rank's rows are those rows of the whole
+        ``[C, D]`` draw."""
         wts = eta * done.to(F32)
         key = prng.fold_in(self._noise_base, t)            # CPU scalar key
+        lo, hi = self.axis.lo, self.axis.hi
         if self.dp_rng == "in_kernel":
             sent, _ = cohort_clip_noise_prng(
                 U, key, wts, done, clip=self.dp_round_clip,
-                noise_scale=self.noise_scale, with_agg=False)
+                noise_scale=self.noise_scale, with_agg=False,
+                row_offset=lo)
             return sent
-        noise = (prng.normal(key, (self.C, self.D), device=self.device)
+        noise = (prng.normal_rows(key, (self.C, self.D), lo, hi,
+                                  device=self.device)
                  if self.noise_scale > 0.0 else None)
         sent, _ = cohort_clip_noise(U, noise, wts, done,
                                     clip=self.dp_round_clip,
@@ -486,10 +579,12 @@ class DeviceCohortEngine:
                                     with_agg=False)
         return sent
 
-    def _far_plan(self, t, i, k, far_mask, any_far, ovf_at, ovf_cnt,
-                  ovf_ks, err, ovf_hwm, far_msgs, ops):
+    def _far_plan(self, t, grp, grp_n, cnt, cnt_ks, far_n, any_far, ovf_at,
+                  ovf_cnt, ovf_ks, err, ovf_hwm, far_msgs, ops):
         """The overflow bucket's integer update for this tick's far
-        arrivals, all on the device.
+        arrivals, all on the device, from the far groups' counts over
+        every client (``grp_n`` [V], ``cnt`` / ``cnt_ks`` [V, R] by round
+        and by sender k, ``far_n`` in all).
 
         The reference inserts the distinct far arrival ticks one by one,
         ascending, at most F of them: a tick that already has a slot
@@ -499,11 +594,7 @@ class DeviceCohortEngine:
         processed; unmatched processed groups take the free slots in
         ascending order; a non-empty group that is not written (past F,
         or no free slot) sets the error latch."""
-        R, Q = self.R, self.Q
-        arr_off = self._update_offsets(i)
-        grp = far_mask[None, :] & (arr_off[None, :]
-                                   == self._far_vals[:, None])       # [V, C]
-        any_grp = grp.any(1)
+        any_grp = grp_n > 0
         rank = torch.cumsum(any_grp.to(I32), 0) - 1
         proc = any_grp & (rank < self.F)
         tick_q = t + self._far_vals                                   # [V]
@@ -521,10 +612,6 @@ class DeviceCohortEngine:
         err = err | (any_grp & ~write).any().to(I32)
         wq = write[:, None] & (idx[:, None] == self._ar_Q[None, :])   # [V, Q]
         wq_i = wq.to(I32)
-        oh_r = (i & (R - 1))[:, None] == self._ar_R                   # [C, R]
-        oh_s = (k & (R - 1))[:, None] == self._ar_R
-        cnt = (grp[:, :, None] & oh_r[None]).sum(1, dtype=I32)        # [V, R]
-        cnt_ks = (grp[:, :, None] & oh_s[None]).sum(1, dtype=I32)
         ovf_cnt = ovf_cnt + (wq_i[:, :, None] * cnt[:, None, :]).sum(
             0, dtype=I32)
         ovf_ks = ovf_ks + (wq_i[:, :, None] * cnt_ks[:, None, :]).sum(
@@ -537,43 +624,47 @@ class DeviceCohortEngine:
         # only on ticks that route to the far tier
         ovf_hwm = torch.where(any_far, torch.maximum(
             ovf_hwm, (ovf_at != 0).sum(dtype=I32)), ovf_hwm)
-        far_msgs = far_msgs + far_mask.sum(dtype=I32)
+        far_msgs = far_msgs + far_n
         ops[OP_FAR_TICKS] += any_far.to(I32)
         ops[OP_FAR_GROUPS] += proc.sum(dtype=I32)
         plan = _FarPlan(grp=grp, slot_of_q=wq_i.argmax(0),
-                        written_q=written_q)
+                        written_q=written_q, any_r=cnt_ks > 0)
         return ovf_at, ovf_cnt, ovf_ks, err, ovf_hwm, far_msgs, ops, plan
 
-    def _far_insert(self, sent, eta, k, far: _FarPlan, ovf_vec, ovf_kvec):
-        """Float half of the far tier: each written slot adds its group's
-        weighted sum ``sum_c eta_c * sent[c]`` (one product with the
-        ``[V, C]`` group weights); under FedAsync per sender-k stratum,
-        each guarded so an empty stratum stays bitwise untouched."""
+    def _far_weights(self, eta, k, far: _FarPlan):
+        """The far groups' rows of the scatter weights: ``eta_c`` on each
+        group's clients (``[V, C]``), under FedAsync per sender-k stratum
+        (``[V * R, C]``, v-major)."""
         g_w = eta[None, :] * far.grp.to(F32)                          # [V, C]
+        if not self.strategy.stratified:
+            return g_w
+        oh_s = (k & (self.R - 1))[:, None] == self._ar_R              # [C, R]
+        return (g_w[:, :, None] * oh_s[None].to(F32)).permute(
+            0, 2, 1).reshape(-1, g_w.shape[1])
+
+    def _far_insert(self, vecs, far: _FarPlan, ovf_vec, ovf_kvec):
+        """Float half of the far tier: each written slot adds its group's
+        weighted sum ``sum_c eta_c * sent[c]`` (``vecs``, the scatter's far
+        rows in the plan's far-value order); under FedAsync per sender-k
+        stratum, each guarded so an empty stratum stays bitwise
+        untouched."""
+        take = far.slot_of_q
         if self.strategy.stratified:
-            R = self.R
-            oh_s = (k & (R - 1))[:, None] == self._ar_R               # [C, R]
-            grp_r = far.grp[:, :, None] & oh_s[None]             # [V, C, R]
-            w_r = (g_w[:, :, None] * oh_s[None].to(F32)).permute(0, 2, 1)
-            vecs = (w_r.reshape(-1, self.C) @ sent).reshape(
-                -1, R, self.D)                                  # [V, R, D]
-            take = far.slot_of_q
-            any_r = grp_r.any(1)[take]                                 # [Q, R]
-            upd = far.written_q[:, None] & any_r
+            vecs = vecs.reshape(-1, self.R, self.D)                 # [V, R, D]
+            upd = far.written_q[:, None] & far.any_r[take]          # [Q, R]
             ovf_kvec = torch.where(upd[:, :, None], ovf_kvec + vecs[take],
                                    ovf_kvec)
             return ovf_vec, ovf_kvec
-        vecs = g_w @ sent                                              # [V, D]
         ovf_vec = torch.where(far.written_q[:, None],
-                              ovf_vec + vecs[far.slot_of_q], ovf_vec)
+                              ovf_vec + vecs[take], ovf_vec)
         return ovf_vec, ovf_kvec
 
     # -- segments -----------------------------------------------------------
     def segment(self, target_k: int, tick_limit: int) -> int:
-        """Advance ``self.state`` until ``server_k >= target_k``, the tick
+        """Advance ``self._st`` until ``server_k >= target_k``, the tick
         budget runs out or the overflow bucket's error latch is set;
         returns ``server_k``."""
-        st = self.state
+        st = self._st
         tick, sk, err = torch.stack([st.tick, st.server_k, st.err]).tolist()
         self.host_syncs["segment"] += 1
         while sk < target_k and tick < tick_limit and err == 0:
@@ -587,23 +678,23 @@ class DeviceCohortEngine:
                 tick, sk, err = tick + 1, sk + p.cascades, p.err
                 had_block = had_block or p.any_block
             st = st._replace(iters=st.iters + self._iter_inc[int(had_block)])
-        self.state = st
+        self._st = st
         return sk
 
     @property
     def fused_iters(self):
         """(loop_iters, block_iters): loop iterations executed and how
         many contained a block tick."""
-        it = self.state.iters.tolist()
+        it = self._st.iters.tolist()
         return int(it[0]), int(it[1])
 
     @property
     def total_messages(self) -> int:
-        return int(self.state.messages)
+        return int(self._st.messages)
 
     @property
     def total_broadcasts(self) -> int:
-        return int(self.state.broadcasts)
+        return int(self._st.broadcasts)
 
     @property
     def overflow_slots(self) -> int:
@@ -635,7 +726,7 @@ class DeviceCohortEngine:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
             first_segment = False
-            st = self.state
+            st = self._st
             if sk < target:
                 if int(st.err) != 0:
                     raise RuntimeError(
@@ -679,35 +770,49 @@ class DeviceCohortEngine:
 
     # -- telemetry ----------------------------------------------------------
     def _emit_segment(self) -> None:
+        """A segment record (rank 0 writes; every rank takes part in the
+        gather of the per-client counters)."""
+        if not self._trace_on:
+            return
+        st = self._st
+        bytes_up_total = int(self._bytes_up().sum())
         if not self._trace:
             return
-        st = self.state
         self._trace.emit(
             "segment", engine="device", round=int(st.server_k),
             tick=int(st.tick), time=int(st.tick) * self.dt,
             messages=int(st.messages), broadcasts=int(st.broadcasts),
-            bytes_up_total=int(self._bytes_up().sum()),
+            bytes_up_total=bytes_up_total,
             staleness_hist=st.stale_hist.cpu().numpy(),
             overflow_hwm=int(st.ovf_hwm), ops=st.ops.cpu().numpy())
 
-    def _bytes_up(self) -> np.ndarray:
+    def _participation(self) -> np.ndarray:
+        """Updates sent per client, int64, over the whole population (a
+        cut client axis gathered from every rank)."""
+        return (self.axis.gather_rows(self._st.part).cpu().numpy()
+                .astype(np.int64))
+
+    def _bytes_up(self, part: Optional[np.ndarray] = None) -> np.ndarray:
         """Uplink bytes per client, int64: every update message of a run
         has one size, so messages x size.  The state's int32 counter (the
         reference's layout) wraps past 2**31 bytes, one message of a
         model of 5.4e8 parameters."""
-        return (self.state.part.cpu().numpy().astype(np.int64)
-                * self.upd_bytes)
+        if part is None:
+            part = self._participation()
+        return part * self.upd_bytes
 
     def telemetry_report(self, wall=None):
-        """MetricsReport from the on-device counters (reads the state)."""
-        st = self.state
+        """MetricsReport from the on-device counters (reads the state;
+        over a cut client axis every rank calls it: it gathers)."""
+        st = self._st
         src_task = self.ctask.task
+        part = self._participation()
         return build_report(
             engine="device", clients=self.C, flat_dim=self.D,
             rounds=int(st.server_k), messages=int(st.messages),
             broadcasts=int(st.broadcasts),
-            participation=st.part.cpu().numpy().astype(np.int64),
-            bytes_up=self._bytes_up(),
+            participation=part,
+            bytes_up=self._bytes_up(part),
             staleness_hist=st.stale_hist.cpu().numpy().astype(np.int64),
             overflow_hwm=int(st.ovf_hwm),
             overflow_slots=self.overflow_slots,

@@ -26,11 +26,13 @@ the operands the device engine (``repro_torch.cohort.device``) gives
 them — ``server_apply`` for the server's step (the apply, FedAsync's
 decay, FedBuff's bank and flush), one launch a tick that has arrivals;
 ``tick_deliver`` for ISRRECEIVE; ``cohort_clip_noise``
-(no weighted sum) for the round-completion DP; one ``tick_scatter`` per
-completion tick for the near groups' sums and the rows' settle; one
-``[V, C] @ [C, D]`` product for the far groups — so on the card the two
-engines run the same kernels on the same operands and agree bit for
-bit, as they do on the CPU over the plain versions.  Where the
+(no weighted sum) for the round-completion DP; tick_scatter's rows pass
+and finish (``tick_scatter_rows`` / ``tick_scatter_finish``) once per
+completion tick for the near groups' sums, the far groups' sums (extra
+weight rows beside the near ones) and the rows' settle — so on the card
+the two engines run the same kernels on the same operands and agree bit
+for bit, as they do on the CPU over the plain versions (the twins of
+the kernels' add order).  Where the
 reference's host engine (``repro/cohort/engine.py``) writes an
 expression the device engine does not, this engine takes the device
 engine's (see ``_apply_due`` and ``_finish_rounds``); against the
@@ -50,6 +52,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch.analysis.salts import NOISE_SALT
+from repro_torch.cohort.clients import ClientAxis
 from repro_torch.cohort.state import (FRAC_BITS, BroadcastRing, CohortState,
                                       UpdateBuckets, default_max_ticks,
                                       next_pow2, pad_sizes, speed_accrual)
@@ -57,7 +60,7 @@ from repro_torch.core.strategies import get_strategy, ring_decay
 from repro_torch.core.tasks import validate_dp_knobs
 from repro_torch.kernels.cohort_dp import cohort_clip_noise
 from repro_torch.kernels.tick_fused import (server_apply, tick_deliver,
-                                            tick_scatter)
+                                            tick_scatter_finish)
 from repro_torch.scenarios import ScenarioPlan, get_scenario
 from repro_torch.telemetry import (STALE_BINS, PhaseTimer, build_report,
                                    open_trace, staleness_bin,
@@ -160,6 +163,8 @@ class CohortEngine:
                     else ())
         self._far_vals = {int(v): j for j, v in enumerate(far_vals)}
         self._far_tier = bool(far_vals)
+        # the device engine's scatter route on one undivided client axis
+        self._axis = ClientAxis(None, C)
 
         self.total_messages = 0
         self.total_broadcasts = 0
@@ -367,10 +372,11 @@ class CohortEngine:
                 near.append((g, in_g, pairs))
                 self.ops[OP_RING_SCATTERS] += 1
 
-        # near groups and the rows' settle: one tick_scatter, a row per
-        # group (per (group, stratum) under FedAsync) weighted eta * in_g,
-        # each starting from its bucket (0.0 when new) as the device
-        # engine's ring rows do; a single all-false row when none.  The
+        # near groups, far groups and the rows' settle: one rows pass and
+        # one finish, a row per near group (per (group, stratum) under
+        # FedAsync) weighted eta * in_g, each starting from its bucket
+        # (0.0 when new) as the device engine's ring rows do, a single
+        # all-false row when none; then the far groups' rows.  The
         # reference's host engine differs here in two expressions, and
         # this engine takes the device engine's: it asks the clip+noise
         # kernel for no weighted sum (no single-group ``vec = agg``), and
@@ -389,16 +395,24 @@ class CohortEngine:
         if not near:
             rows, masks = [zero[:1]], [np.zeros(C, bool)]
         masks = self._dev(np.stack(masks))
-        st.w, st.U, out = tick_scatter(
-            sent, st.w, st.U, torch.cat(rows), eta[None, :] * masks.to(F32),
-            masks.any(1), done_dev, eta, dp_on=self.dp_on)
+        wgt, any_g = eta[None, :] * masks.to(F32), masks.any(1)
+        G = wgt.shape[0]
+        if far:
+            fw = self._far_weights(far, eta, kmod)
+            wgt = torch.cat([wgt, fw])
+            any_g = torch.cat([any_g, torch.ones(fw.shape[0],
+                                                 dtype=torch.bool,
+                                                 device=self.device)])
+        st.w, st.U, partial, _ = self._axis.partials(
+            sent, st.w, st.U, wgt, done_dev, eta, dp_on=self.dp_on)
+        out = tick_scatter_finish(partial, torch.cat(rows), any_g)
         per = R if strat.stratified else 1
         for j, (g, _, pairs) in enumerate(near):
             vec = out[j * per:(j + 1) * per]
             self.updates.put(g, vec if strat.stratified else vec[0], pairs)
 
         if far:
-            self._far_insert(far, sent, eta, kmod)
+            self._far_insert(far, out[G:], kmod)
             self.ops[OP_FAR_TICKS] += 1
             self.ops[OP_FAR_GROUPS] += len(far)
         # far-tier occupancy high-water mark (pending far arrival ticks)
@@ -409,23 +423,29 @@ class CohortEngine:
         st.credit[done] = np.minimum(st.credit[done],
                                      self.block << FRAC_BITS)
 
-    def _far_insert(self, far, sent, eta, kmod) -> None:
-        """The far groups' weighted sums as the device engine takes them:
-        one product of the ``[V, C]`` group weights (rows in the plan's
-        far-value order, zero rows for absent values) with ``sent``
-        (``[V * R, C]`` by sender-k stratum under FedAsync), each added
-        to its bucket (0.0 when new); an empty stratum stays untouched."""
-        st, C, R = self.state, self.C, self.R
+    def _far_weights(self, far, eta, kmod) -> torch.Tensor:
+        """The far groups' scatter weight rows as the device engine takes
+        them: ``eta_c`` on each group's clients, a row per far value of
+        the plan (zero rows for absent values), ``[V * R, C]`` by sender-k
+        stratum under FedAsync."""
+        st, C = self.state, self.C
         grp = np.zeros((len(self._far_vals), C), bool)
         for g, in_g, _ in far:
             grp[self._far_vals[g - st.tick]] = in_g
         g_w = eta[None, :] * self._dev(grp).to(F32)                 # [V, C]
+        if not self.strategy.stratified:
+            return g_w
+        oh_s = self._dev(kmod)[:, None] == self._ar_R                # [C, R]
+        return (g_w[:, :, None] * oh_s[None].to(F32)).permute(
+            0, 2, 1).reshape(-1, C)
+
+    def _far_insert(self, far, vecs, kmod) -> None:
+        """Each far group's weighted sum (``vecs``: the scatter's far rows)
+        added to its bucket (0.0 when new); under FedAsync per sender-k
+        stratum, an empty stratum untouched."""
+        st, R = self.state, self.R
         if self.strategy.stratified:
-            oh_s = self._dev(kmod)[:, None] == self._ar_R            # [C, R]
-            w_r = (g_w[:, :, None] * oh_s[None].to(F32)).permute(0, 2, 1)
-            vecs = (w_r.reshape(-1, C) @ sent).reshape(-1, R, self.D)
-        else:
-            vecs = g_w @ sent                                        # [V, D]
+            vecs = vecs.reshape(-1, R, self.D)
         for g, in_g, pairs in far:
             vec = vecs[self._far_vals[g - st.tick]]
             cur = self.updates.get(g, far=True)

@@ -32,6 +32,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch import prng, tree
+from repro_torch.cohort.tasks import _client_view
 from repro_torch.core.tasks import BatchModelTask, _promoted, clip_tree
 
 F32 = torch.float32
@@ -110,6 +111,11 @@ class CohortBatchModelTask:
         self.base_keys = prng.fold_in(batcher.base.to(self.device),
                                       torch.arange(self.C,
                                                    device=self.device))
+
+    def for_clients(self, lo: int, hi: int) -> "CohortBatchModelTask":
+        """The task over clients ``[lo, hi)`` of the population: batches
+        keyed by the global client index, the model shared."""
+        return _client_view(self, lo, hi)
 
     # -- flat layout -------------------------------------------------------
     def flatten(self, t) -> torch.Tensor:

@@ -84,7 +84,10 @@ class CohortSimulator(_Front):
 
 
 class DeviceCohortSimulator(_Front):
-    """Front end of the device-resident engine."""
+    """Front end of the device-resident engine.  ``mesh``: a 1-D
+    ``clients`` mesh (``repro_torch.sharding.cohort_mesh``) to cut the
+    population's ``[C, ...]`` state over its ranks; None (the default)
+    keeps it on one device with no process group."""
 
     def __init__(self, task, *, n_clients: int, sizes_per_client,
                  round_stepsizes: Sequence[float], d: int = 1,
@@ -93,7 +96,7 @@ class DeviceCohortSimulator(_Front):
                  dp_round_clip: float = 0.0, scenario=None, trace=None,
                  dp_delta: float = 1e-5, strategy=None,
                  dp_rng: str = "operand", fuse_ticks: bool = True,
-                 device=None):
+                 device=None, mesh=None):
         self.task = task
         self.device = resolve_device(device)
         self.ctask = as_cohort_task(task, n_clients, seed=seed,
@@ -106,14 +109,19 @@ class DeviceCohortSimulator(_Front):
             dp_sigma=src_task.dp_sigma, dp_clip=src_task.dp_clip,
             dp_round_clip=dp_round_clip, scenario=scenario, trace=trace,
             dp_delta=dp_delta, strategy=strategy, dp_rng=dp_rng,
-            fuse_ticks=fuse_ticks)
+            fuse_ticks=fuse_ticks, mesh=mesh)
+
+    @property
+    def server_model(self):
+        return self.ctask.unflatten(self.engine.local_state.v)
 
 
 def make_simulator(engine, task, **kw):
     """Engine switch: ``engine`` is ``'event' | 'cohort' | 'device'``, or
     an ``FLConfig`` whose ``engine`` / ``cohort_block`` / ``scenario`` /
     ``aggregation`` fields select and tune the engine.  ``device`` (the
-    card when omitted) is passed through to all three."""
+    card when omitted) is passed through to all three; ``mesh`` (a
+    ``clients`` mesh) to the device engine only."""
     if not isinstance(engine, str):
         cfg = engine
         engine = cfg.engine
@@ -123,6 +131,9 @@ def make_simulator(engine, task, **kw):
             kw.setdefault("scenario", cfg.scenario)
         if cfg.aggregation is not None:
             kw.setdefault("strategy", cfg.aggregation)
+    if engine != "device" and kw.pop("mesh", None) is not None:
+        raise ValueError(f"engine={engine!r} takes no mesh: only the "
+                         f"device engine cuts its state over ranks")
     if engine == "cohort":
         return CohortSimulator(task, **kw)
     if engine == "device":

@@ -17,6 +17,9 @@ message buffers as fixed-capacity ring tensors and the telemetry
 counters — as one NamedTuple of tensors with the reference's field names
 and dtypes (``repro.cohort.state``), so a numpy copy of the reference's
 state converts field by field (``repro_torch.convert.state_from_jax``).
+Over a ``clients`` mesh a rank holds its rows of the ``[C, ...]``
+fields; ``dtensor_views`` shows them as DTensors placed as the
+reference's ``cohort_shardings``.
 
 Iteration credit is int32 fixed point (``FRAC_BITS`` fractional bits),
 as in the reference: float credit would accumulate differently across
@@ -172,6 +175,19 @@ class DeviceCohortState(NamedTuple):
     # the ops census above still counts TICKS, this counts ITERATIONS
     # after tick coalescing, so block_iters <= loop_iters <= ticks.
     iters: Any             # [2]       i32 [loop_iters, block_iters]
+
+
+def dtensor_views(st: DeviceCohortState, mesh, n_clients: int
+                  ) -> DeviceCohortState:
+    """``st`` (one rank's tensors) as DTensors on ``mesh``, each field
+    placed as ``cohort_shardings(mesh, n_clients)`` says: a view of the
+    rank's tensor (``DTensor.from_local``, no copy, no collective)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding import cohort_shardings
+    return DeviceCohortState(**{
+        f: DTensor.from_local(getattr(st, f), m, pl, run_check=False)
+        for f, (m, pl) in cohort_shardings(mesh, n_clients).items()})
 
 
 @dataclass

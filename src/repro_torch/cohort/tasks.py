@@ -11,6 +11,7 @@ steps before the loop.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -31,6 +32,19 @@ def _clip_pairs(gw: torch.Tensor, gb: torch.Tensor, clip: float
     return gw * scale[..., None], gb * scale
 
 
+def _client_view(task, lo: int, hi: int):
+    """A shallow copy of a cohort task holding clients ``[lo, hi)``: its
+    per-client keys sliced, everything else shared."""
+    if not 0 <= lo < hi <= task.C:
+        raise ValueError(f"client range [{lo}, {hi}) outside {task.C}")
+    if (lo, hi) == (0, task.C):
+        return task
+    view = copy.copy(task)
+    view.C = hi - lo
+    view.base_keys = task.base_keys[lo:hi]
+    return view
+
+
 class CohortLogRegTask:
     """Whole-population view of ``LogRegTask`` (the paper's experiments)
     on ``device``."""
@@ -48,6 +62,11 @@ class CohortLogRegTask:
             prng.PRNGKey(base_seed, device=self.device),
             torch.arange(self.C, device=self.device))
         self.X, self.y = task.on(self.device)
+
+    def for_clients(self, lo: int, hi: int) -> "CohortLogRegTask":
+        """The task over clients ``[lo, hi)`` of the population: its
+        draws keyed by the global client index, the data shared."""
+        return _client_view(self, lo, hi)
 
     # -- flat layout -------------------------------------------------------
     def flatten(self, m) -> torch.Tensor:

@@ -17,7 +17,8 @@
 //   cannot be reproduced off the TPU.  Here each element hashes its own
 //   counter: threefry2x32 (20 rounds, jax's schedule) keyed by the tick's
 //   noise key (k0, k1), counter = the flat index c * D + d as the
-//   (hi, lo) pair, x0 -> b1, x1 -> b2; then Box-Muller exactly as the
+//   (hi, lo) pair (c the global row: a rank holding rows from row_lo
+//   passes start = row_lo * D), x0 -> b1, x1 -> b2; then Box-Muller as the
 //   TPU kernel: u1 = (b1 >> 8) 2^-24 + 2^-25, u2 = (b2 >> 8) 2^-24,
 //   n = sqrt(-2 log u1) cos(2 pi u2).  A draw depends only on
 //   (key, c, d), so the result does not depend on the launch geometry,
@@ -159,11 +160,14 @@ struct OperandNoise {
 struct CounterNoise {
   static constexpr bool kSkipZero = true;
   uint32_t k0, k1;
+  // the counter of element 0: the flat index of this block's first row
+  // in the whole [C, D] draw (row offset * D)
+  uint64_t start;
   // all kElts hashes, independent chains (past the end: unused)
   __device__ void fill(size_t i0, int, bool, float* nz) const {
 #pragma unroll
     for (int j = 0; j < kElts; ++j)
-      nz[j] = counter_normal(k0, k1, (uint64_t)(i0 + j));
+      nz[j] = counter_normal(k0, k1, start + (uint64_t)(i0 + j));
   }
 };
 
@@ -337,13 +341,16 @@ int dp_clip_noise(const float* u, const float* noise, const float* mask,
                            stream);
 }
 
+// start: the counter of u's first element, row_offset * D for the rows
+// of a larger draw
 int dp_clip_noise_prng(const float* u, uint32_t k0, uint32_t k1,
-                       const float* mask, const float* wgt, float* out,
-                       float* agg, float* partial, float* scale, int C, int D,
-                       float clip, float noise_scale, cudaStream_t stream) {
-  return launch_clip_noise(u, CounterNoise{k0, k1}, nullptr, mask, wgt, out,
-                           agg, partial, scale, C, D, clip, noise_scale,
-                           stream);
+                       long long start, const float* mask, const float* wgt,
+                       float* out, float* agg, float* partial, float* scale,
+                       int C, int D, float clip, float noise_scale,
+                       cudaStream_t stream) {
+  return launch_clip_noise(u, CounterNoise{k0, k1, (uint64_t)start}, nullptr,
+                           mask, wgt, out, agg, partial, scale, C, D, clip,
+                           noise_scale, stream);
 }
 
 int dp_prng_words(uint32_t k0, uint32_t k1, long long n, uint32_t* words0,

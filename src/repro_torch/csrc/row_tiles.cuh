@@ -159,7 +159,8 @@ __device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src,
   });
 }
 
-// out[g, d] = on ? (upd ? upd[g, d] + S : S) : (upd ? upd[g, d] : 0), with
+// out[g, d] = on ? (u ? upd[g, d] + S : S) : (u ? upd[g, d] : 0), with
+// u = upd && g < nupd (the rows past upd's nupd are sums alone),
 // on = nblk > 0 && (!any_g || any_g[g]) and S the sum over b of
 // partial[b, g, d].  A block takes 32 columns of one g; warp l is leaf l
 // and adds blocks [l * nblk / L, (l + 1) * nblk / L) in ascending order
@@ -171,7 +172,7 @@ __global__ void __launch_bounds__(kLeaves * 32)
     finish_kernel(const float* __restrict__ partial,
                   const float* __restrict__ upd,
                   const bool* __restrict__ any_g, float* __restrict__ out,
-                  int nblk, int G, int D) {
+                  int nblk, int G, int D, int nupd) {
   __shared__ float red[kLeaves][32];
   const int lane = threadIdx.x & 31;
   const int leaf = threadIdx.x >> 5;
@@ -197,17 +198,20 @@ __global__ void __launch_bounds__(kLeaves * 32)
   }
   if (leaf == 0 && d < D) {
     const size_t i = (size_t)g * D + d;
-    const float base = upd ? upd[i] : 0.0f;
-    out[i] = !on ? base : upd ? __fadd_rn(base, red[0][lane]) : red[0][lane];
+    const bool u = upd != nullptr && g < nupd;
+    const float base = u ? upd[i] : 0.0f;
+    out[i] = !on ? base : u ? __fadd_rn(base, red[0][lane]) : red[0][lane];
   }
 }
 
+// nupd: rows of upd (G when it covers every row; ignored when upd is null)
 inline cudaError_t launch_finish(const float* partial, const float* upd,
                                  const bool* any_g, float* out, int nblk,
-                                 int G, int D, cudaStream_t stream) {
+                                 int G, int D, cudaStream_t stream,
+                                 int nupd = -1) {
   if (G <= 0 || D <= 0) return cudaSuccess;
   finish_kernel<<<dim3((D + 31) / 32, G), kLeaves * 32, 0, stream>>>(
-      partial, upd, any_g, out, nblk, G, D);
+      partial, upd, any_g, out, nblk, G, D, nupd < 0 ? G : nupd);
   return cudaGetLastError();
 }
 

@@ -35,6 +35,15 @@
 // a tree of 16 leaves per column, many blocks wide.  One pass over the
 // bytes, every SM busy: what the byte bound asks for.
 //
+// The rows pass and the finish are also entry points of their own
+// (tf_scatter_rows, tf_scatter_finish): the cohort engines launch them
+// apart, so a client axis cut over ranks can run the rows pass on each
+// rank's rows under the WHOLE axis's partition (rows per block given,
+// row 0 at a given position of its block, block 0 started from a given
+// carry: the running sum of that block's rows on the ranks before) and
+// gather the block partials before the finish.  Uncut, the two launches
+// are tf_tick_scatter's, with the same bits.
+//
 // Rounding: every product and sum is an explicit round-to-nearest
 // intrinsic (__fmul_rn / __fadd_rn / __fsub_rn), which nvcc never
 // contracts into an FMA; the file is also built with -fmad=false.  So
@@ -312,17 +321,22 @@ __global__ void __launch_bounds__(512, 2) tick_scatter_rows_kernel(
     const float* __restrict__ U, const float* __restrict__ wgt,
     const bool* __restrict__ done, const float* __restrict__ eta,
     float* __restrict__ w_out, float* __restrict__ u_out,
-    float* __restrict__ partial, int C, int D, int G, int slab, int ld,
-    int rows_per_block, int dp_on, int vec) {
+    float* __restrict__ partial, const float* __restrict__ carry, int C,
+    int D, int G, int slab, int ld, int rows_per_block, int off, int ldw,
+    int dp_on, int vec) {
   constexpr int TR = kScatterTileRows;
   constexpr int NC = rowtiles::kColsPerThread;
   extern __shared__ __align__(16) float smem[];
   __shared__ bool sdone[3][TR];
   const int sf = scatter_stage_floats(KG, ld);
   // slabs on x (up to 2^31 - 1 of them: a model-sized D has ~10^6),
-  // row blocks on y (at most kMaxBlocks)
-  const int rb0 = blockIdx.y * rows_per_block;
-  const int rb1 = min(rb0 + rows_per_block, C);
+  // row blocks on y (at most kMaxBlocks); row 0 at position off of block 0
+  const int rb0 = max(0, (int)blockIdx.y * rows_per_block - off);
+  const int rb1 = min((int)blockIdx.y * rows_per_block - off + rows_per_block,
+                      C);
+  // block 0 starts its sums from carry (the running sums of its rows
+  // before row 0), where given
+  const bool from_carry = carry != nullptr && blockIdx.y == 0;
   const int c0 = blockIdx.x * slab;
   const int len = min(slab, D - c0);
   const int g0 = blockIdx.z * KG;
@@ -355,7 +369,7 @@ __global__ void __launch_bounds__(512, 2) tick_scatter_rows_kernel(
       const int i = j - k * nr;
       rowtiles::cp_elem(se + k * TR + i,
                         k == 0 ? eta + r0 + i
-                               : wgt + (size_t)(g0 + k - 1) * C + r0 + i);
+                               : wgt + (size_t)(g0 + k - 1) * ldw + r0 + i);
     }
     rowtiles::commit();
   };
@@ -367,6 +381,16 @@ __global__ void __launch_bounds__(512, 2) tick_scatter_rows_kernel(
   __syncthreads();
   issue(0);
   float acc[NC][KG];
+  if (from_carry) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = tid + k * blockDim.x;
+      if (c >= len) continue;
+#pragma unroll
+      for (int j = 0; j < KG; ++j)
+        if (j < gn) acc[k][j] = carry[(size_t)(g0 + j) * D + c0 + c];
+    }
+  }
   for (int t = 0; t < ntile; ++t) {
     const bool dnext = done_of(t + 2);
     rowtiles::wait_all();
@@ -433,7 +457,7 @@ __global__ void __launch_bounds__(512, 2) tick_scatter_rows_kernel(
     }
 
     // the ring sums: each thread's NC columns, rows in ascending order;
-    // the block's first row starts each sum (no 0.0f + x)
+    // the block's first row (or the carry) starts each sum (no 0.0f + x)
 #pragma unroll
     for (int k = 0; k < NC; ++k) {
       const int c = tid + k * blockDim.x;
@@ -446,7 +470,9 @@ __global__ void __launch_bounds__(512, 2) tick_scatter_rows_kernel(
         for (int j = 0; j < KG; ++j) {
           if (j >= gn) break;
           const float term = __fmul_rn(s, se[(1 + j) * TR + i]);
-          acc[k][j] = t == 0 && i == 0 ? term : __fadd_rn(acc[k][j], term);
+          acc[k][j] = t == 0 && i == 0 && !from_carry
+                          ? term
+                          : __fadd_rn(acc[k][j], term);
         }
       }
     }
@@ -462,39 +488,48 @@ __global__ void __launch_bounds__(512, 2) tick_scatter_rows_kernel(
   }
 }
 
-// The rows pass over (row blocks, column slabs, chunks of KG ring rows),
-// then the finish pass.  vec: w, U and both outputs share sent's
-// alignment within 16 bytes, so w' and U' go out as 16-byte stores.
+// The rows pass over (row blocks, column slabs, chunks of KG ring rows):
+// n rows, row 0 at position off of its block, block 0 started from carry
+// where given; wgt's rows ldw apart.  vec: w, U and both outputs share
+// sent's alignment within 16 bytes, so w' and U' go out as 16-byte stores.
 template <int KG>
-int launch_scatter(const float* sent, const float* w, const float* U,
-                   const float* upd, const float* wgt, const bool* any_g,
-                   const bool* done, const float* eta, float* w_out,
-                   float* u_out, float* upd_out, float* partial, int C, int D,
-                   int G, int dp_on, cudaStream_t stream) {
-  const rowtiles::Partition part =
-      rowtiles::partition(C, kScatterTileRows);
-  if (part.blocks > 0) {
-    const rowtiles::Slabs sl = rowtiles::slabs(D, sizeof(float));
-    const size_t bytes =
-        2 * sizeof(float) * (size_t)scatter_stage_floats(KG, sl.ld);
-    cudaError_t err = cudaFuncSetAttribute(
-        tick_scatter_rows_kernel<KG>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    const uintptr_t a = reinterpret_cast<uintptr_t>(sent) % 16;
-    const int vec = reinterpret_cast<uintptr_t>(w) % 16 == a &&
-                    reinterpret_cast<uintptr_t>(U) % 16 == a &&
-                    reinterpret_cast<uintptr_t>(w_out) % 16 == a &&
-                    reinterpret_cast<uintptr_t>(u_out) % 16 == a;
-    const dim3 grid(sl.count, part.blocks, G > KG ? (G + KG - 1) / KG : 1);
-    tick_scatter_rows_kernel<KG><<<grid, sl.threads, bytes, stream>>>(
-        sent, w, U, wgt, done, eta, w_out, u_out, partial, C, D, G, sl.width,
-        sl.ld, part.rows_per_block, dp_on, vec);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)rowtiles::launch_finish(partial, upd, any_g, upd_out,
-                                      part.blocks, G, D, stream);
+int launch_rows(const float* sent, const float* w, const float* U,
+                const float* wgt, const bool* done, const float* eta,
+                float* w_out, float* u_out, float* partial,
+                const float* carry, int n, int D, int G, int ldw, int rb,
+                int off, int dp_on, cudaStream_t stream) {
+  const int blocks = (off + n + rb - 1) / rb;
+  if (n <= 0 || blocks <= 0) return 0;
+  const rowtiles::Slabs sl = rowtiles::slabs(D, sizeof(float));
+  const size_t bytes =
+      2 * sizeof(float) * (size_t)scatter_stage_floats(KG, sl.ld);
+  cudaError_t err = cudaFuncSetAttribute(
+      tick_scatter_rows_kernel<KG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(sent) % 16;
+  const int vec = reinterpret_cast<uintptr_t>(w) % 16 == a &&
+                  reinterpret_cast<uintptr_t>(U) % 16 == a &&
+                  reinterpret_cast<uintptr_t>(w_out) % 16 == a &&
+                  reinterpret_cast<uintptr_t>(u_out) % 16 == a;
+  const dim3 grid(sl.count, blocks, G > KG ? (G + KG - 1) / KG : 1);
+  tick_scatter_rows_kernel<KG><<<grid, sl.threads, bytes, stream>>>(
+      sent, w, U, wgt, done, eta, w_out, u_out, partial, carry, n, D, G,
+      sl.width, sl.ld, rb, off, ldw, dp_on, vec);
+  return (int)cudaGetLastError();
+}
+
+int rows_pass(const float* sent, const float* w, const float* U,
+              const float* wgt, const bool* done, const float* eta,
+              float* w_out, float* u_out, float* partial, const float* carry,
+              int n, int D, int G, int ldw, int rb, int off, int dp_on,
+              cudaStream_t stream) {
+  return G <= 2 ? launch_rows<2>(sent, w, U, wgt, done, eta, w_out, u_out,
+                                 partial, carry, n, D, G, ldw, rb, off, dp_on,
+                                 stream)
+                : launch_rows<8>(sent, w, U, wgt, done, eta, w_out, u_out,
+                                 partial, carry, n, D, G, ldw, rb, off, dp_on,
+                                 stream);
 }
 
 }  // namespace
@@ -537,18 +572,44 @@ int tf_scatter_blocks(int C) {
   return rowtiles::partition(C, kScatterTileRows).blocks;
 }
 
+// the fused pass pair: the rows pass under C's own partition, then the
+// finish over its partials into upd_out
 int tf_tick_scatter(const float* sent, const float* w, const float* U,
                     const float* upd, const float* wgt, const bool* any_g,
                     const bool* done, const float* eta, float* w_out,
                     float* u_out, float* upd_out, float* partial, int C,
                     int D, int G, int dp_on, cudaStream_t stream) {
   if (D <= 0) return 0;
-  return G <= 2 ? launch_scatter<2>(sent, w, U, upd, wgt, any_g, done, eta,
-                                    w_out, u_out, upd_out, partial, C, D, G,
-                                    dp_on, stream)
-                : launch_scatter<8>(sent, w, U, upd, wgt, any_g, done, eta,
-                                    w_out, u_out, upd_out, partial, C, D, G,
-                                    dp_on, stream);
+  const rowtiles::Partition part = rowtiles::partition(C, kScatterTileRows);
+  const int err = rows_pass(sent, w, U, wgt, done, eta, w_out, u_out,
+                            partial, nullptr, C, D, G, C,
+                            part.rows_per_block, 0, dp_on, stream);
+  if (err != 0) return err;
+  return (int)rowtiles::launch_finish(partial, upd, any_g, upd_out,
+                                      part.blocks, G, D, stream);
+}
+
+// The rows pass alone: n rows (pointers at the first), row 0 at position
+// off of its block of rb rows, block 0 from carry [G, D] where not null;
+// w', U' and the partials [(off + n + rb - 1) / rb, G, D]
+int tf_scatter_rows(const float* sent, const float* w, const float* U,
+                    const float* wgt, const bool* done, const float* eta,
+                    float* w_out, float* u_out, float* partial,
+                    const float* carry, int n, int D, int G, int ldw, int rb,
+                    int off, int dp_on, cudaStream_t stream) {
+  if (D <= 0) return 0;
+  if (rb <= 0 || off < 0 || off >= rb) return (int)cudaErrorInvalidValue;
+  return rows_pass(sent, w, U, wgt, done, eta, w_out, u_out, partial, carry,
+                   n, D, G, ldw, rb, off, dp_on, stream);
+}
+
+// The finish pass alone over nblk partials [nblk, G, D]: rows g < nupd
+// start from upd (null: none do) where any_g, the others are the sums
+int tf_scatter_finish(const float* partial, const float* upd, int nupd,
+                      const bool* any_g, float* out, int nblk, int G, int D,
+                      cudaStream_t stream) {
+  return (int)rowtiles::launch_finish(partial, upd, any_g, out, nblk, G, D,
+                                      stream, upd ? nupd : 0);
 }
 
 }  // extern "C"

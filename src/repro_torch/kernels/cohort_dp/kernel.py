@@ -35,7 +35,7 @@ def _dp():
         lib = _build.load("cohort_dp")
         lib.dp_blocks.argtypes = [_I]
         lib.dp_clip_noise.argtypes = [_P] * 8 + [_I, _I, _F, _F, _P]
-        lib.dp_clip_noise_prng.argtypes = ([_P, _U, _U] + [_P] * 6
+        lib.dp_clip_noise_prng.argtypes = ([_P, _U, _U, _LL] + [_P] * 6
                                            + [_I, _I, _F, _F, _P])
         lib.dp_prng_words.argtypes = [_U, _U, _LL, _P, _P, _P]
         for fn in (lib.dp_blocks, lib.dp_clip_noise, lib.dp_clip_noise_prng,
@@ -94,10 +94,12 @@ def key_words(key):
 
 
 def cohort_clip_noise_prng_kernel(u, key, weights, mask, *, clip: float,
-                                  noise_scale: float, with_agg: bool = True):
+                                  noise_scale: float, with_agg: bool = True,
+                                  row_offset: int = 0):
     """u [C, D] f32; key [2] CPU int64 (two uint32 words); weights, mask
     [C] f32 -> (out [C, D], agg [D] or None), the normals generated in
-    the kernel from the counter stream of ``key``."""
+    the kernel from the counter stream of ``key``, u's row 0 being row
+    ``row_offset`` of the draw."""
     C, D = u.shape
     dev = u.device
     _build.need(u, "u", torch.float32, (C, D), dev)
@@ -107,7 +109,8 @@ def cohort_clip_noise_prng_kernel(u, key, weights, mask, *, clip: float,
     lib = _dp()
     out, agg, ptrs = _buffers(lib, u, clip, with_agg)
     _build.check(lib.dp_clip_noise_prng(
-        u.data_ptr(), k0, k1, mask.data_ptr(), weights.data_ptr(), *ptrs,
+        u.data_ptr(), k0, k1, int(row_offset) * D, mask.data_ptr(),
+        weights.data_ptr(), *ptrs,
         C, D, float(clip), float(noise_scale), _build.stream(dev)),
         "cohort_clip_noise_prng")
     LAUNCHES["cohort_clip_noise_prng"] += 1

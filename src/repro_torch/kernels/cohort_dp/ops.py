@@ -36,16 +36,20 @@ def cohort_clip_noise(u, noise, weights, mask, *, clip: float = 0.0,
 
 
 def cohort_clip_noise_prng(u, key, weights, mask, *, clip: float = 0.0,
-                           noise_scale: float = 0.0, with_agg: bool = True):
+                           noise_scale: float = 0.0, with_agg: bool = True,
+                           row_offset: int = 0):
     """``cohort_clip_noise`` with the normals generated from ``key`` (one
     ``[2]`` key on the CPU: its words become kernel scalars) — on the
     card inside the kernel, on the CPU by the plain version, which
-    reproduces the kernel's stream."""
+    reproduces the kernel's stream.  ``row_offset``: u's row 0 is that
+    row of the draw (a rank's rows of the client axis take the normals
+    of the whole draw's matching rows)."""
     if not on_cuda(u):
         return cohort_clip_noise_prng_ref(u, key, weights, mask, clip=clip,
                                           noise_scale=noise_scale,
-                                          with_agg=with_agg)
+                                          with_agg=with_agg,
+                                          row_offset=row_offset)
     return cohort_clip_noise_prng_kernel(
         u.contiguous(), key, weights.to(torch.float32),
         mask.to(torch.float32), clip=clip, noise_scale=noise_scale,
-        with_agg=with_agg)
+        with_agg=with_agg, row_offset=row_offset)

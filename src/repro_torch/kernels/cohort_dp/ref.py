@@ -62,11 +62,15 @@ def counter_normals(key, C: int, D: int, device=None, *,
 
 
 def cohort_clip_noise_prng_ref(u, key, weights, mask, *, clip: float,
-                               noise_scale: float, with_agg: bool = True):
+                               noise_scale: float, with_agg: bool = True,
+                               row_offset: int = 0):
     """``cohort_clip_noise_ref`` with the normals of ``counter_normals``
-    (drawn only when ``noise_scale > 0``); ``key`` is one CPU key."""
+    (drawn only when ``noise_scale > 0``); ``key`` is one CPU key.  u's
+    row 0 is row ``row_offset`` of the draw (a rank's rows of the whole
+    client axis)."""
     C, D = u.shape
-    noise = (counter_normals(key, C, D, device=u.device)
+    noise = (counter_normals(key, C, D, device=u.device,
+                             start=int(row_offset) * D)
              if noise_scale > 0.0 else None)
     return cohort_clip_noise_ref(u, noise, weights, mask, clip=clip,
                                  noise_scale=noise_scale, with_agg=with_agg)

@@ -35,6 +35,43 @@ def block_sums(terms: torch.Tensor, rows_per_block: int) -> torch.Tensor:
     return acc
 
 
+def block_partials(sent: torch.Tensor, wgt: torch.Tensor,
+                   rows_per_block: int, row_offset: int = 0,
+                   carry=None) -> torch.Tensor:
+    """The rows pass's partials of ``sum_c wgt[g, c] * sent[c, d]``:
+    sent [n, D], wgt [G, n] -> [blocks, G, D].
+
+    Row 0 sits at position ``row_offset`` of its block (the rows of a
+    larger array cut at a row that is not a block's first), so block b
+    holds rows ``[b * rb - row_offset, (b + 1) * rb - row_offset)``;
+    each product is rounded once and each block's rows added in
+    ascending order from its first, block 0 from ``carry`` [G, D] where
+    given (the running sum of its rows before row 0).  The products are
+    taken one row position at a time: no [n, G, D] tensor is held."""
+    n = sent.shape[0]
+    rb, off = int(rows_per_block), int(row_offset)
+    if not 0 <= off < rb:
+        raise ValueError(f"row offset {off} outside [0, {rb})")
+    nblk = -(-(off + n) // rb)
+    acc = sent.new_empty((nblk, wgt.shape[0], sent.shape[1]))
+    for p in range(rb):
+        b_lo = 0 if p >= off else 1
+        r0 = b_lo * rb + p - off
+        if r0 >= n:
+            continue
+        terms = wgt[:, r0::rb].T[:, :, None] * sent[r0::rb][:, None, :]
+        b_hi = b_lo + terms.shape[0]
+        if p == off:                  # block 0's first row
+            acc[0] = terms[0] if carry is None else carry + terms[0]
+            b_lo = 1
+            terms = terms[1:]
+        if p == 0:                    # the first row of blocks 1, 2, ...
+            acc[b_lo:b_hi] = terms
+        else:
+            acc[b_lo:b_hi] = acc[b_lo:b_hi] + terms
+    return acc
+
+
 def finish_tree(partial: torch.Tensor) -> torch.Tensor:
     """partial [blocks, ...] (blocks > 0) -> their sum as the finish pass
     adds it: min(LEAVES, blocks) leaves of consecutive blocks, each added

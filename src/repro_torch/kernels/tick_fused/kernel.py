@@ -7,7 +7,13 @@ Replaces the Pallas kernels of the reference's
   (``bucket_apply_kernel``), redesigned as the server's whole step of a
   tick; ``bucket_apply_kernel`` is the same kernel with only the apply
 * ``tick_deliver_kernel``  <- ``_tick_deliver_kernel`` (``tick_deliver_kernel``)
-* ``tick_scatter_kernel``  <- ``_tick_scatter_kernel`` (``tick_scatter_kernel``)
+* ``tick_scatter_kernel``  <- ``_tick_scatter_kernel``
+  (``tick_scatter_kernel``); its two passes are also entry points of their
+  own,
+  ``tick_scatter_rows_kernel`` (a given rows per block, row offset and
+  start carry, partials out) and ``tick_scatter_finish_kernel`` (the
+  tree over given partials): the cohort engines' route, so the partials
+  of a client axis cut over ranks can be gathered between them
 
 All three are memory-bound f32 streams (see the source's note for the
 design).  Each launcher checks device, dtype, shape and contiguity,
@@ -38,9 +44,12 @@ def _tf():
         lib.tf_tick_deliver.argtypes = [_P] * 7 + [_I, _I, _P]
         lib.tf_scatter_blocks.argtypes = [_I]
         lib.tf_tick_scatter.argtypes = [_P] * 12 + [_I] * 4 + [_P]
+        lib.tf_scatter_rows.argtypes = [_P] * 10 + [_I] * 7 + [_P]
+        lib.tf_scatter_finish.argtypes = [_P, _P, _I, _P, _P] + [_I] * 3 + [_P]
         for fn in (lib.tf_bucket_apply, lib.tf_server_apply,
-                   lib.tf_tick_deliver,
-                   lib.tf_scatter_blocks, lib.tf_tick_scatter):
+                   lib.tf_tick_deliver, lib.tf_scatter_blocks,
+                   lib.tf_tick_scatter,
+                   lib.tf_scatter_rows, lib.tf_scatter_finish):
             fn.restype = _I
         _lib = lib
     return _lib
@@ -163,3 +172,71 @@ def tick_scatter_kernel(sent, w, U, upd, wgt, any_g, done, eta, *,
         "tick_scatter")
     LAUNCHES["tick_scatter"] += 1
     return w_out, u_out, upd_out
+
+
+def tick_scatter_rows_kernel(sent, w, U, wgt, done, eta, *, dp_on: bool,
+                             rows_per_block: int, row_offset: int = 0,
+                             carry=None, out=None):
+    """The rows pass alone: sent, w, U [n, D] f32 (row slices of larger
+    blocks are fine: rows are contiguous); wgt [G, n] f32 with unit
+    column stride (a column slice of a [G, C] matrix is fine); done [n]
+    bool; eta [n] f32; carry [G, D] f32 or None -> (w', U', partial
+    [blocks, G, D]).  ``out`` = (w_out, u_out) [n, D] to write w' and U'
+    into (views of larger blocks), else new tensors."""
+    n, D = sent.shape
+    G = wgt.shape[0]
+    dev = sent.device
+    rb, off = int(rows_per_block), int(row_offset)
+    if not 0 <= off < rb:
+        raise ValueError(f"row offset {off} outside [0, {rb})")
+    for name, t in (("sent", sent), ("w", w), ("U", U)):
+        _build.need(t, name, torch.float32, (n, D), dev)
+    if (tuple(wgt.shape) != (G, n) or wgt.dtype != torch.float32
+            or wgt.device != dev or (n > 1 and wgt.stride(1) != 1)):
+        raise ValueError(f"wgt must be [{G}, {n}] f32 on {dev} with unit "
+                         f"column stride, got {wgt.dtype} "
+                         f"{tuple(wgt.shape)} {wgt.stride()}")
+    _build.need(done, "done", torch.bool, (n,), dev)
+    _build.need(eta, "eta", torch.float32, (n,), dev)
+    if carry is not None:
+        _build.need(carry, "carry", torch.float32, (G, D), dev)
+    if out is None:
+        w_out, u_out = torch.empty_like(w), torch.empty_like(U)
+    else:
+        w_out, u_out = out
+        _build.need(w_out, "w_out", torch.float32, (n, D), dev)
+        _build.need(u_out, "u_out", torch.float32, (n, D), dev)
+    partial = torch.empty((-(-(off + n) // rb), G, D), dtype=torch.float32,
+                          device=dev)
+    _build.check(_tf().tf_scatter_rows(
+        sent.data_ptr(), w.data_ptr(), U.data_ptr(), wgt.data_ptr(),
+        done.data_ptr(), eta.data_ptr(), w_out.data_ptr(), u_out.data_ptr(),
+        partial.data_ptr(), None if carry is None else carry.data_ptr(), n,
+        D, G, wgt.stride(0), rb, off, int(bool(dp_on)), _build.stream(dev)),
+        "tick_scatter_rows")
+    LAUNCHES["tick_scatter_rows"] += 1
+    return w_out, u_out, partial
+
+
+def tick_scatter_finish_kernel(partial, upd, any_g):
+    """The finish pass alone: partial [blocks, G, D] f32; upd [Gu, D] f32
+    (Gu <= G) or None; any_g [G] bool or None -> [G, D]."""
+    nblk, G, D = partial.shape
+    dev = partial.device
+    _build.need(partial, "partial", torch.float32, (nblk, G, D), dev)
+    Gu = 0
+    if upd is not None:
+        Gu = upd.shape[0]
+        if Gu > G:
+            raise ValueError(f"upd has {Gu} rows, more than G = {G}")
+        _build.need(upd, "upd", torch.float32, (Gu, D), dev)
+    if any_g is not None:
+        _build.need(any_g, "any_g", torch.bool, (G,), dev)
+    out = torch.empty((G, D), dtype=torch.float32, device=dev)
+    _build.check(_tf().tf_scatter_finish(
+        partial.data_ptr(), None if upd is None else upd.data_ptr(), Gu,
+        None if any_g is None else any_g.data_ptr(), out.data_ptr(), nblk,
+        G, D, _build.stream(dev)), "tick_scatter_finish")
+    LAUNCHES["tick_scatter_finish"] += 1
+    return out
+

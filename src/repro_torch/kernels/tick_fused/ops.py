@@ -10,14 +10,18 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.tick_fused.kernel import (bucket_apply_kernel,
-                                                   server_apply_kernel,
-                                                   tick_deliver_kernel,
-                                                   tick_scatter_kernel)
-from repro_torch.kernels.tick_fused.ref import (bucket_apply_ref,
+from repro_torch.kernels import row_tiles
+from repro_torch.kernels.tick_fused.kernel import (
+    bucket_apply_kernel, server_apply_kernel, tick_deliver_kernel,
+    tick_scatter_finish_kernel, tick_scatter_kernel,
+    tick_scatter_rows_kernel)
+from repro_torch.kernels.tick_fused.ref import (SCATTER_TILE_ROWS,
+                                                bucket_apply_ref,
                                                 server_apply_ref,
                                                 tick_deliver_ref,
-                                                tick_scatter_ref)
+                                                tick_scatter_finish_twin,
+                                                tick_scatter_ref,
+                                                tick_scatter_rows_twin)
 
 
 def on_cuda(t: torch.Tensor) -> bool:
@@ -83,3 +87,46 @@ def tick_scatter(sent, w, U, upd, wgt, any_g, done, eta, *, dp_on: bool):
                                wgt.contiguous(), any_g.to(torch.bool),
                                done.to(torch.bool), eta.contiguous(),
                                dp_on=dp_on)
+
+
+def scatter_partition(C: int):
+    """(rows per block, blocks) of tick_scatter's partition of ``C``
+    client rows: ``row_tiles.cuh``'s, the same on the card and here."""
+    return row_tiles.partition(C, SCATTER_TILE_ROWS)
+
+
+def tick_scatter_rows(sent, w, U, wgt, done, eta, *, dp_on: bool,
+                      rows_per_block: int, row_offset: int = 0, carry=None,
+                      out=None):
+    """tick_scatter's rows pass alone: (w', U', partials [blocks, G, D])
+    of ``n`` client rows whose row 0 sits at ``row_offset`` of its block
+    of ``rows_per_block`` rows, block 0 started from ``carry`` [G, D]
+    where given.  The plain version is ``tick_scatter_rows_twin`` (the
+    kernel's add order).  ``out``: (w_out, u_out) to write w', U' into."""
+    if not on_cuda(sent):
+        w_new, U_new, part = tick_scatter_rows_twin(
+            sent, w, U, wgt, done, eta, dp_on=dp_on,
+            rows_per_block=rows_per_block, row_offset=row_offset,
+            carry=carry)
+        if out is not None:
+            out[0].copy_(w_new)
+            out[1].copy_(U_new)
+            w_new, U_new = out
+        return w_new, U_new, part
+    if wgt.stride(-1) != 1:            # a transposed mask, say
+        wgt = wgt.contiguous()
+    return tick_scatter_rows_kernel(
+        sent.contiguous(), w.contiguous(), U.contiguous(), wgt,
+        done.to(torch.bool).contiguous(), eta.contiguous(), dp_on=dp_on,
+        rows_per_block=rows_per_block, row_offset=row_offset,
+        carry=None if carry is None else carry.contiguous(), out=out)
+
+
+def tick_scatter_finish(partial, upd, any_g):
+    """tick_scatter's finish pass alone over ``partial`` [blocks, G, D]
+    (``tick_scatter_finish_twin`` says what it computes)."""
+    if not on_cuda(partial):
+        return tick_scatter_finish_twin(partial, upd, any_g)
+    return tick_scatter_finish_kernel(
+        partial.contiguous(), None if upd is None else upd.contiguous(),
+        None if any_g is None else any_g.to(torch.bool))

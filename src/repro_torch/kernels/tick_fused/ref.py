@@ -126,3 +126,40 @@ def tick_scatter_twin(sent, w, U, upd, wgt, any_g, done, eta, *, dp_on):
     terms = wgt.T[:, :, None] * sent[:, None, :]            # [C, G, D]
     total = row_tiles.finish_tree(row_tiles.block_sums(terms, rb))
     return w_new, U_new, torch.where(any_g[:, None], upd + total, upd)
+
+
+def tick_scatter_rows_twin(sent, w, U, wgt, done, eta, *, dp_on: bool,
+                           rows_per_block: int, row_offset: int = 0,
+                           carry=None):
+    """tick_scatter's rows pass alone, with its add order: w' and U'
+    (``tick_scatter_ref``'s) and the block partials [blocks, G, D] of
+    the ring sums (``row_tiles.block_partials``) under a given rows per
+    block, the first row at ``row_offset`` of its block, block 0 started
+    from ``carry`` where given.  On the whole array with the partition's
+    own rows per block and no offset, its partials are the ones
+    ``tick_scatter_twin`` finishes."""
+    w_new, U_new = _settle(sent, w, U, done, eta, dp_on)
+    return w_new, U_new, row_tiles.block_partials(
+        sent, wgt, rows_per_block, row_offset, carry)
+
+
+def tick_scatter_finish_twin(partial, upd, any_g):
+    """tick_scatter's finish pass alone: partial [blocks, G, D] ->
+    [G, D], each row's block partials added by the finish tree.  The
+    first ``upd.shape[0]`` rows start from ``upd`` and take the sum only
+    where ``any_g`` (an untouched row stays bitwise); the rows past
+    ``upd`` (all of them when ``upd`` is None) are the sum where
+    ``any_g`` and 0.0 elsewhere.  ``any_g`` None is all true.  No host
+    read: it runs under CUDA-graph capture."""
+    nblk, G, D = partial.shape
+    Gu = 0 if upd is None else upd.shape[0]
+    base = partial.new_zeros((G, D))
+    if Gu:
+        base[:Gu] = upd
+    if nblk == 0:
+        return base
+    total = row_tiles.finish_tree(partial)
+    summed = torch.cat([upd + total[:Gu], total[Gu:]]) if Gu else total
+    if any_g is None:
+        return summed
+    return torch.where(any_g.to(torch.bool)[:, None], summed, base)

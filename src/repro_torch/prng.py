@@ -256,13 +256,34 @@ def normal(key: torch.Tensor, shape: Sequence[int],
     if n <= slab:
         u = uniform(key, shape, _NORMAL_LO, 1.0, device=device)
         return _SQRT2_F32 * erf_inv(u)
+    return _normal_flat(key, 0, n, device).reshape(tuple(shape))
+
+
+def _normal_flat(key: torch.Tensor, start: int, n: int,
+                 device) -> torch.Tensor:
+    """The normals of flat indices ``start .. start + n - 1``, hashed in
+    slabs of ``NORMAL_SLAB``: each element is a function of its own
+    index, so any cut of the range gives the same bits."""
     out = torch.empty(n, dtype=torch.float32, device=device)
-    for lo in range(0, n, slab):
-        b0, b1 = counter_words(key, min(slab, n - lo), device=device,
-                               start=lo)
+    for lo in range(0, n, NORMAL_SLAB):
+        b0, b1 = counter_words(key, min(NORMAL_SLAB, n - lo), device=device,
+                               start=start + lo)
         u = _unit_to_range(_bits_to_unit(b0 ^ b1), _NORMAL_LO, 1.0)
-        out[lo:lo + slab] = _SQRT2_F32 * erf_inv(u)
-    return out.reshape(tuple(shape))
+        out[lo:lo + NORMAL_SLAB] = _SQRT2_F32 * erf_inv(u)
+    return out
+
+
+def normal_rows(key: torch.Tensor, shape: Sequence[int], row_lo: int,
+                row_hi: int, device=None) -> torch.Tensor:
+    """Rows ``row_lo:row_hi`` of ``normal(key, shape)`` (leading axis),
+    bit for bit, without drawing the others: the slice a rank holds of
+    a draw over the whole client axis."""
+    shape = tuple(shape)
+    if not 0 <= row_lo <= row_hi <= shape[0]:
+        raise ValueError(f"rows [{row_lo}, {row_hi}) outside {shape[0]}")
+    per = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+    return _normal_flat(key, row_lo * per, (row_hi - row_lo) * per,
+                        device).reshape((row_hi - row_lo,) + shape[1:])
 
 
 _INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1

@@ -18,6 +18,7 @@ the event simulator: latency seconds from the same per-message bins.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -230,6 +231,37 @@ class ScenarioPlan:
             scenario.availability.tick_plan(self.C, self.dt, self.seed,
                                             device=device)
         self._avail_last: Tuple[Optional[torch.Tensor], Any] = (None, None)
+
+    def for_clients(self, lo: int, hi: int) -> "ScenarioPlan":
+        """The plan as the rank holding clients ``[lo, hi)`` sees it:
+        ``update_ticks`` takes and ``broadcast_ticks`` / ``avail_mask``
+        give ``[hi - lo]`` tensors, each the matching slice of the whole
+        population's draw (every draw is addressed by the global client
+        index).  The tick plan's global figures (ring, far values,
+        latency tail, duty) are the whole plan's."""
+        if (lo, hi) == (0, self.C):
+            return self
+        if self.dt is None:
+            raise ValueError("a client range needs the cohort engines' "
+                             "plan (dt set)")
+        view = copy.copy(self)
+        view.C = hi - lo
+        for name in ("_prob_c", "_alias_c", "_cidx", "_upd_client_keys",
+                     "_tick0_c", "_tick_vals_c"):
+            setattr(view, name, getattr(self, name)[lo:hi])
+        view._bc_cache = {}
+        whole = self.avail_mask
+        if whole is not None:
+            last: list = [None, None]
+
+            def avail_mask(t: int) -> torch.Tensor:
+                m = whole(t)
+                if m is not last[0]:
+                    last[:] = [m, m[lo:hi]]
+                return last[1]
+
+            view.avail_mask = avail_mask
+        return view
 
     def fingerprint(self):
         """Hashable identity for caches keyed on the plan: the plan is a

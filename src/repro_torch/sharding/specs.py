@@ -228,6 +228,18 @@ def cohort_pspecs(mesh, n_clients: int) -> Dict[str, P]:
     }
 
 
+def client_range(mesh, n_clients: int) -> Tuple[int, int]:
+    """The rows ``[lo, hi)`` of the client axis this rank holds under
+    ``cohort_pspecs``: its equal block where ``_fit`` shards the axis
+    over ``clients``, else (the axis replicated: C not divisible by the
+    ranks, one rank, or no mesh) the whole population."""
+    if mesh is None or _fit(mesh, n_clients, "clients") is None:
+        return 0, int(n_clients)
+    per = int(n_clients) // _axis_size(mesh, "clients")
+    r = mesh.get_local_rank("clients")
+    return r * per, (r + 1) * per
+
+
 def cohort_shardings(mesh, n_clients: int) -> Dict[str, Any]:
     return {f: (mesh, placements(mesh, s))
             for f, s in cohort_pspecs(mesh, n_clients).items()}

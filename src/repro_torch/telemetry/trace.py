@@ -65,9 +65,10 @@ class JsonlTraceWriter:
             self._fh.flush()
 
 
-def open_trace(trace) -> Optional[JsonlTraceWriter]:
-    """None | path | file-like | JsonlTraceWriter -> writer or None."""
-    if trace is None:
+def open_trace(trace, rank: int = 0) -> Optional[JsonlTraceWriter]:
+    """None | path | file-like | JsonlTraceWriter -> writer or None.  Only
+    rank 0 of a run cut over ranks writes: another ``rank`` gets None."""
+    if trace is None or rank != 0:
         return None
     if isinstance(trace, JsonlTraceWriter):
         return trace

@@ -102,7 +102,8 @@ def test_kernels_match_plain_versions(dev, C, D):
         assert bool(((a - pa).abs() <= agg_tol + 1e-30).all())
     torch.cuda.synchronize()
     assert LAUNCHES == {"bucket_apply": 2, "tick_deliver": 1,
-                        "tick_scatter": 1, "cohort_clip_noise": 2,
+                        "tick_scatter": 1, "tick_scatter_rows": 0,
+                        "tick_scatter_finish": 0, "cohort_clip_noise": 2,
                         "cohort_clip_noise_prng": 0, "clip_accumulate": 0,
                         "flash_attention": 0, "ssd_scan": 0}
 
@@ -545,6 +546,87 @@ def test_tick_scatter_matches_its_twin_bitwise(dev, C, D, G, share, dp_on,
         if not bool(any_g[gi]):
             assert _bits_equal(k[2][gi], upd[gi])
     assert bool(torch.signbit(k[2][:, 0]).all())
+
+
+@pytest.mark.parametrize("C,D,G,P", [
+    (20, 13, 2, 2), (20, 785, 8, 4), (2, 13, 2, 2), (4, 13, 2, 4),
+    (1160, 785, 3, 4), (16384, 785, 8, 1), (16384, 785, 2, 4)])
+def test_scatter_passes_cut_over_ranks_match_the_fused_kernel(dev, C, D, G,
+                                                              P):
+    """tick_scatter's two entry points as a cut client axis runs them
+    (each rank's rows from their offset in the whole axis's partition, a
+    straddling block continued from the carry, the complete blocks'
+    partials finished together, past the ring rows a row of sums alone)
+    bit for bit the fused launch and their twins."""
+    from repro_torch.kernels import LAUNCHES, reset
+    from repro_torch.kernels.tick_fused import (scatter_partition,
+                                                tick_scatter,
+                                                tick_scatter_finish,
+                                                tick_scatter_finish_twin,
+                                                tick_scatter_rows,
+                                                tick_scatter_rows_twin)
+    sent, w, U, upd, wgt, any_g, done, eta = _scatter_case(
+        dev, C, D, G, 0.5, "aligned", seed=C + G)
+    fused = tick_scatter(sent, w, U, upd, wgt, any_g, done, eta, dp_on=True)
+    rb, nblk = scatter_partition(C)
+    n = C // P
+    reset()
+    parts, carry, wo, uo = [], None, torch.empty_like(w), torch.empty_like(U)
+    for r in range(P):
+        lo, hi = r * n, (r + 1) * n
+        a = (sent[lo:hi], w[lo:hi], U[lo:hi], wgt[:, lo:hi], done[lo:hi],
+             eta[lo:hi])
+        kw = dict(dp_on=True, rows_per_block=rb, row_offset=lo % rb,
+                  carry=carry if lo % rb else None)
+        _, _, p = tick_scatter_rows(*a, out=(wo[lo:hi], uo[lo:hi]), **kw)
+        tw = tick_scatter_rows_twin(*(x.cpu() for x in a), **{
+            **kw, "carry": None if kw["carry"] is None
+            else kw["carry"].cpu()})
+        assert _bits_equal(p.cpu(), tw[2])
+        carry = None
+        if hi < C and hi % rb:
+            carry, p = p[-1].contiguous(), p[:-1]
+        parts.append(p)
+    partial = torch.cat(parts)
+    assert partial.shape[0] == nblk
+    out = tick_scatter_finish(partial, upd, any_g)
+    torch.cuda.synchronize()
+    assert LAUNCHES["tick_scatter_rows"] == P
+    assert LAUNCHES["tick_scatter_finish"] == 1
+    assert _bits_equal(out, fused[2])
+    assert _bits_equal(wo, fused[0]) and _bits_equal(uo, fused[1])
+    alone = tick_scatter_finish(partial, upd[:1], None)
+    assert _bits_equal(alone.cpu(), tick_scatter_finish_twin(
+        partial.cpu(), upd[:1].cpu(), None))
+
+
+@pytest.mark.parametrize("C,D,lo,hi", [(13, 29, 5, 9), (16384, 785, 4096,
+                                                         8192),
+                                       (1160, 785, 870, 1160)])
+def test_in_kernel_noise_at_a_row_offset_is_the_whole_draws_rows(dev, C, D,
+                                                                 lo, hi):
+    """cohort_clip_noise_prng on a rank's rows with ``row_offset``: bit
+    for bit those rows of the whole launch, and its twin's."""
+    from repro_torch import prng
+    from repro_torch.analysis.salts import NOISE_SALT
+    from repro_torch.kernels.cohort_dp import (cohort_clip_noise_prng,
+                                               cohort_clip_noise_prng_ref,
+                                               counter_normals)
+    g = torch.Generator(device=dev).manual_seed(C)
+    U = torch.randn((C, D), generator=g, device=dev)
+    mask = torch.rand(C, generator=g, device=dev) < 0.6
+    wts = 0.1 * mask.float()
+    key = prng.fold_in(prng.PRNGKey(2 ^ NOISE_SALT), 9)
+    kw = dict(clip=1.0, noise_scale=0.8, with_agg=False)
+    whole, _ = cohort_clip_noise_prng(U, key, wts, mask, **kw)
+    rows, _ = cohort_clip_noise_prng(U[lo:hi], key, wts[lo:hi], mask[lo:hi],
+                                     row_offset=lo, **kw)
+    assert _bits_equal(rows, whole[lo:hi])
+    twin, _ = cohort_clip_noise_prng_ref(U[lo:hi], key, wts[lo:hi],
+                                         mask[lo:hi], row_offset=lo, **kw)
+    n = counter_normals(key, hi - lo, D, device=dev, start=lo * D)
+    row_tol = ROW_RTOL * (U[lo:hi].abs() + 0.8 * n.abs())
+    assert bool(((rows - twin).abs() <= row_tol).all())
 
 
 @pytest.mark.parametrize("N,D,dtype", [

@@ -256,6 +256,28 @@ def test_counter_stream_is_threefry_on_the_flat_index():
     np.testing.assert_allclose(n, ref, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("lo,hi", [(0, 13), (5, 9), (12, 13), (3, 3)])
+def test_prng_noise_at_a_row_offset_is_the_whole_draws_rows(lo, hi):
+    """A rank's rows with ``row_offset``: the in-kernel stream's plain
+    version gives the rows of the whole [C, D] draw, bit for bit (the
+    counters are the global flat indices)."""
+    rng = np.random.default_rng(8)
+    C, D = 13, 29
+    U = torch.tensor(rng.standard_normal((C, D)).astype(np.float32))
+    mask = torch.tensor(rng.random(C) < 0.6)
+    wts = torch.tensor(rng.random(C).astype(np.float32)) * mask
+    key = _tick_key(9)
+    whole, _ = cohort_clip_noise_prng(U, key, wts, mask, clip=1.0,
+                                      noise_scale=0.8, with_agg=False)
+    rows, _ = cohort_clip_noise_prng(U[lo:hi], key, wts[lo:hi],
+                                     mask[lo:hi], clip=1.0, noise_scale=0.8,
+                                     with_agg=False, row_offset=lo)
+    assert torch.equal(rows.view(torch.int32),
+                       whole[lo:hi].view(torch.int32))
+    n = counter_normals(key, hi - lo, D, start=lo * D)
+    assert torch.equal(n, counter_normals(key, C, D)[lo:hi])
+
+
 @pytest.mark.parametrize("clip", [1.0, 0.0])
 def test_prng_plain_version_without_noise_is_the_operand_one(clip):
     rng = np.random.default_rng(6)

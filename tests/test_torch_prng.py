@@ -120,6 +120,23 @@ def test_normal_noise_chain_within_ulp_bound(tick):
     assert np.isfinite(got).all()
 
 
+@pytest.mark.parametrize("slab", [None, 64])
+@pytest.mark.parametrize("lo,hi", [(0, 64), (0, 1), (7, 8), (13, 41),
+                                   (63, 64), (20, 20)])
+def test_normal_rows_is_the_matching_slice_of_the_whole_draw(
+        monkeypatch, slab, lo, hi):
+    """A rank's rows of the noise draw: ``normal_rows`` bit for bit the
+    rows of ``normal`` over the whole client axis, with the slab of 64
+    elements (two rows of 33) cutting rows and ranges too."""
+    if slab is not None:
+        monkeypatch.setattr(prng, "NORMAL_SLAB", slab)
+    key = prng.fold_in(prng.PRNGKey(2 ^ NOISE_SALT), 17)
+    whole = prng.normal(key, (64, 33))
+    rows = prng.normal_rows(key, (64, 33), lo, hi)
+    assert rows.shape == (hi - lo, 33)
+    assert torch.equal(rows.view(torch.int32), whole[lo:hi].view(torch.int32))
+
+
 def test_erf_inv_edges():
     x = torch.tensor([-1.0, 1.0, 0.0, -0.5, 0.5])
     out = prng.erf_inv(x)

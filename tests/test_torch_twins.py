@@ -27,7 +27,10 @@ from repro.kernels.tick_fused import ref as jref
 from repro_torch.kernels import row_tiles
 from repro_torch.kernels.dp_clip import (clip_accumulate_ref,
                                          clip_accumulate_twin)
-from repro_torch.kernels.tick_fused import tick_scatter_ref, tick_scatter_twin
+from repro_torch.kernels.tick_fused import (tick_scatter_finish_twin,
+                                            tick_scatter_ref,
+                                            tick_scatter_rows_twin,
+                                            tick_scatter_twin)
 
 SUM_RTOL = 1e-5
 
@@ -113,6 +116,77 @@ def test_tick_scatter_twin_matches_reference(C, D, G, share, dp_on):
             assert np.array_equal(_bits(got[2][g]), _bits(upd[g]))
     # the -0.0 column stays -0.0: no +0.0 start, no padded leaf
     assert np.signbit(got[2][:, 0]).all()
+
+
+@pytest.mark.parametrize("C,D,G,P", [
+    (20, 13, 2, 2),                    # 10 rows a rank, blocks of 4
+    (20, 13, 8, 4),                    # 5 rows a rank
+    (2, 7, 2, 2),                      # one block over both ranks
+    (4, 7, 2, 4),                      # one block over four ranks
+    (1160, 13, 3, 4),                  # blocks of 8, 290 rows a rank
+    (1160, 5, 2, 2),
+])
+def test_rows_pass_cut_over_ranks_finishes_to_the_whole_twin(C, D, G, P):
+    """tick_scatter's two passes as a cut client axis runs them: each
+    rank's rows under the whole axis's rows per block, from their row
+    offset, a block begun on an earlier rank continued from that rank's
+    running sum (the carry); the complete blocks' partials, in block
+    order, finished with the ring rows (and past them, rows of sums
+    alone) are ``tick_scatter_twin``'s, bit for bit; w' and U' too."""
+    sent, w, U, upd, wgt, any_g, done, eta = (
+        torch.as_tensor(a) for a in _scatter_inputs(C, D, G, 0.5, seed=C))
+    whole = tick_scatter_twin(sent, w, U, upd, wgt, any_g, done, eta,
+                              dp_on=True)
+    rb, nblk = row_tiles.partition(C, 4)
+    n = C // P
+    parts, carry, ws, us = [], None, [], []
+    for r in range(P):
+        lo, hi = r * n, (r + 1) * n
+        w1, u1, p = tick_scatter_rows_twin(
+            sent[lo:hi], w[lo:hi], U[lo:hi], wgt[:, lo:hi], done[lo:hi],
+            eta[lo:hi], dp_on=True, rows_per_block=rb, row_offset=lo % rb,
+            carry=carry if lo % rb else None)
+        ws.append(w1)
+        us.append(u1)
+        carry = None
+        if hi < C and hi % rb:       # its last block runs on past hi
+            carry, p = p[-1], p[:-1]
+        parts.append(p)
+    partial = torch.cat(parts)
+    assert partial.shape[0] == nblk
+    out = tick_scatter_finish_twin(partial, upd, any_g)
+    assert np.array_equal(_bits(out), _bits(whole[2]))
+    assert np.array_equal(_bits(torch.cat(ws)), _bits(whole[0]))
+    assert np.array_equal(_bits(torch.cat(us)), _bits(whole[1]))
+    # rows past upd: the sums alone where any_g, 0.0 elsewhere (the far
+    # tier's group sums ride the same passes)
+    sums = tick_scatter_finish_twin(partial, None, any_g)
+    on = tick_scatter_finish_twin(partial, upd[:1], None)
+    total = row_tiles.finish_tree(partial)
+    for g in range(G):
+        want = total[g] if any_g[g] else torch.zeros(D)
+        assert np.array_equal(_bits(sums[g]), _bits(want))
+        if g:
+            assert np.array_equal(_bits(on[g]), _bits(total[g]))
+
+
+def test_rows_twin_carry_is_the_running_sum():
+    """A block cut at any row: the second piece started from the first
+    piece's partial gives the uncut block's partial bit for bit."""
+    sent, w, U, _, wgt, _, done, eta = (
+        torch.as_tensor(a) for a in _scatter_inputs(8, 13, 2, 1.0, seed=3))
+    _, _, uncut = tick_scatter_rows_twin(sent, w, U, wgt, done, eta,
+                                         dp_on=False, rows_per_block=8)
+    for cut in range(1, 8):
+        _, _, a = tick_scatter_rows_twin(
+            sent[:cut], w[:cut], U[:cut], wgt[:, :cut], done[:cut],
+            eta[:cut], dp_on=False, rows_per_block=8)
+        _, _, b = tick_scatter_rows_twin(
+            sent[cut:], w[cut:], U[cut:], wgt[:, cut:], done[cut:],
+            eta[cut:], dp_on=False, rows_per_block=8, row_offset=cut,
+            carry=a[0])
+        assert b.shape[0] == 1
+        assert np.array_equal(_bits(b[0]), _bits(uncut[0]))
 
 
 def _clip_inputs(N, D, dtype, seed):
