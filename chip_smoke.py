@@ -3753,11 +3753,13 @@ def trace_violations(what: str, records, doc, d: int) -> None:
                  f"{found[:5]}")
 
 
-def traced_main(dev, X, y, kw, dp_rng: str, path=None):
-    """One main run (phase 3's configuration), with ``trace=path``."""
+def traced_main(dev, X, y, kw, dp_rng: str, path=None, spans=None):
+    """One main run (phase 3's configuration), with ``trace=path`` and
+    the engine's span recorder ``spans``."""
     m = MAIN
     sim = make_sim(dev, X, y, block=m["block"], dp_rng=dp_rng, trace=path,
                    **kw)
+    sim.engine.spans = spans
     res, wall = timed_run(sim, m["rounds"], m["rounds"] // 2)
     if res["final"]["round"] < m["rounds"]:
         fail(f"phase trace: main run ({dp_rng}) reached round "
@@ -3790,28 +3792,24 @@ def plant_regression(records, d: int) -> list:
 
 
 def profiled_main(dev, X, y, kw):
-    """Phase 14 (e): one main run (operand noise) with its spans
-    annotated (``SpanRecorder(annotate=True)``) under ``torch.profiler``
-    with CPU and CUDA activities; every span name must be among the
-    profiler's events.  Returns the spans, the CUDA time the profiler
+    """Phase 14 (e): one main run (operand noise) with the engine's tick
+    spans recorded and annotated (``engine.spans =
+    SpanRecorder(annotate=True)``) under ``torch.profiler`` with CPU and
+    CUDA activities; every span name must be among the profiler's
+    events.  Returns the spans, the CUDA time the profiler
     puts inside each span name, the device events' time (kernels and
     copies apart from the spans' own device ranges) and the keys with
     the most self CUDA time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.cohort import device as device_mod
     from repro_torch.telemetry import SpanRecorder
 
-    inner = device_mod.PhaseTimer
-    device_mod.PhaseTimer = lambda: SpanRecorder(annotate=True)
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            sim, res, wall = traced_main(dev, X, y, kw, "operand")
-            torch.cuda.synchronize(dev)
-    finally:
-        device_mod.PhaseTimer = inner
-    spans = sim.engine.timer.counts
+    rec = SpanRecorder(annotate=True, device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim, res, wall = traced_main(dev, X, y, kw, "operand", spans=rec)
+        torch.cuda.synchronize(dev)
+    spans = rec.counts
     names = {e.name for e in prof.events()}
     missing = sorted(set(spans) - names)
     if missing:

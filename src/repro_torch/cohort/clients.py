@@ -61,6 +61,9 @@ class ClientAxis:
         self.collectives: Dict[str, int] = {"allreduce": 0, "allgather": 0,
                                             "carry": 0, "report": 0}
         self.rank, self.P, self.group = 0, 1, None
+        #: the engine's span recorder: each rows pass is recorded in its
+        #: ``launches`` (None: nothing is recorded)
+        self.spans = None
         if mesh is not None:       # a replicated axis too: rank 0 traces
             self.rank = mesh.get_local_rank("clients")
             self.P = mesh.size()
@@ -120,7 +123,7 @@ class ClientAxis:
         rb = self.rb
         wgt = wgt.contiguous()      # its column slices keep unit stride
         if not self.sharded:
-            w_out, u_out, part = tick_scatter_rows(
+            w_out, u_out, part = self._rows(
                 sent, w, U, wgt, done, eta, dp_on=dp_on, rows_per_block=rb)
             return w_out, u_out, part, ints
         G, D = wgt.shape[0], sent.shape[1]
@@ -128,7 +131,7 @@ class ClientAxis:
         w_out, u_out = torch.empty_like(w), torch.empty_like(U)
         mine, send = [], None
         if h < n:                        # blocks begun on this rank
-            _, _, body = tick_scatter_rows(
+            _, _, body = self._rows(
                 sent[h:], w[h:], U[h:], wgt[:, h:], done[h:], eta[h:],
                 dp_on=dp_on, rows_per_block=rb,
                 out=(w_out[h:], u_out[h:]))
@@ -144,7 +147,7 @@ class ClientAxis:
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
             self.collectives["carry"] += 1
-            _, _, first = tick_scatter_rows(
+            _, _, first = self._rows(
                 sent[:h], w[:h], U[:h], wgt[:, :h], done[:h], eta[:h],
                 dp_on=dp_on, rows_per_block=rb, row_offset=self.lo % rb,
                 carry=carry, out=(w_out[:h], u_out[:h]))
@@ -159,6 +162,16 @@ class ClientAxis:
             self.collectives["carry"] += 1
         part = self._gather(mine, G, D, ints, sent)
         return (w_out, u_out) + part
+
+    def _rows(self, sent, w, U, wgt, done, eta, **kw):
+        """One ``tick_scatter_rows`` launch, recorded in the span
+        recorder's ``launches`` when there is one."""
+        out = tick_scatter_rows(sent, w, U, wgt, done, eta, **kw)
+        if self.spans is not None:
+            self.spans.launches.append(("tick_scatter_rows", dict(
+                C=sent.shape[0], D=sent.shape[1], G=wgt.shape[0],
+                nd=done.sum(), nblk=out[2].shape[0])))
+        return out
 
     def _gather(self, mine, G: int, D: int, ints, like):
         """One all-gather of every rank's complete partials (padded to the

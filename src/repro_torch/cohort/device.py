@@ -77,8 +77,8 @@ from repro_torch.kernels.tick_fused import (server_apply, tick_deliver,
                                             tick_scatter_finish)
 from repro_torch.scenarios import (ScenarioPlan, get_scenario,
                                    legacy_latency_scenario)
-from repro_torch.telemetry import (STALE_BINS, PhaseTimer, build_report,
-                                   open_trace, update_msg_bytes)
+from repro_torch.telemetry import (STALE_BINS, SpanRecorder, build_report,
+                                   maybe_span, open_trace, update_msg_bytes)
 from repro_torch.telemetry.costs import (N_OPS, OP_FAR_GROUPS, OP_FAR_TICKS,
                                          OP_RING_SCATTERS)
 
@@ -231,6 +231,7 @@ class DeviceCohortEngine:
         self.host_syncs = {"tick": 0, "segment": 0}
         #: collectives made over the mesh, by kind (``ClientAxis``)
         self.collectives = axis.collectives
+        self._spans: Optional[SpanRecorder] = None
         self._st = self._init_state()
         self.history: List[Dict[str, float]] = []
 
@@ -252,6 +253,27 @@ class DeviceCohortEngine:
     def local_state(self) -> DeviceCohortState:
         """This rank's tensors (the whole state without a mesh)."""
         return self._st
+
+    # -- tracing -------------------------------------------------------------
+    @property
+    def spans(self) -> Optional[SpanRecorder]:
+        """The recorder of the segment loop's spans, counters and kernel
+        launches; None (the default) records nothing.
+
+        Spans (``segment`` a call; ``tick`` a tick, args ``t`` and
+        ``fused``; under it ``tick.integer``, ``tick.read``,
+        ``server_step``, ``deliver``, ``client_block``, ``clip_noise``
+        with ``noise_draw`` and ``clip_noise_kernel``, ``ring_scatter``)
+        and the caching allocator's counters over ``tick``,
+        ``client_block`` and ``clip_noise``.  Handed to the client axis
+        and, where it takes one, to the task (``spans``)."""
+        return self._spans
+
+    @spans.setter
+    def spans(self, rec: Optional[SpanRecorder]) -> None:
+        self._spans = self.axis.spans = rec
+        if hasattr(self.ltask, "spans"):
+            self.ltask.spans = rec
 
     def _init_state(self) -> DeviceCohortState:
         C, D, L, R, B, Q = self.axis.n, self.D, self.L, self.R, self.B, self.Q
@@ -298,6 +320,11 @@ class DeviceCohortEngine:
         i_cap = sizes.shape[1] - 1
         strat, plan, axis = self.strategy, self._lplan, self.axis
         far_tier = self.F > 0
+        rec = self._spans
+        # the integer phase runs from here to the packed read: its span is
+        # entered and left by hand
+        integer = maybe_span(rec, "tick.integer")
+        integer.__enter__()
 
         # ---- 1) integer phase ------------------------------------------
         # server: pop this tick's arrival slot and any overflow entry due
@@ -452,7 +479,9 @@ class DeviceCohortEngine:
         packed = torch.stack([ncasc, deliver_rows, any_block.to(I32),
                               any_done.to(I32), next_no_block.to(I32),
                               any_far.to(I32), err])
-        preds = TickPreds(*packed.tolist())       # the one sync per tick
+        integer.__exit__(None, None, None)
+        with maybe_span(rec, "tick.read"):
+            preds = TickPreds(*packed.tolist())   # the one sync per tick
         self.host_syncs["tick"] += 1
 
         # ---- 2) float phase ---------------------------------------------
@@ -470,20 +499,34 @@ class DeviceCohortEngine:
         else:
             due, ovf = st.upd_vec[slot:slot + 1], st.ovf_vec[:, None]
             dec = self._ones1
-        v = server_apply(
-            st.v, due, dec, has_arr, reset=True,
-            ovf=ovf if far_tier else None,
-            ovf_hit=ovf_hit if far_tier else None,
-            buf=st.buf_vec if strat.buffered else None, flush=flush,
-            bc_v=st.bc_v if preds.cascades else None, fired=fired)
+        with maybe_span(rec, "server_step"):
+            v = server_apply(
+                st.v, due, dec, has_arr, reset=True,
+                ovf=ovf if far_tier else None,
+                ovf_hit=ovf_hit if far_tier else None,
+                buf=st.buf_vec if strat.buffered else None, flush=flush,
+                bc_v=st.bc_v if preds.cascades else None, fired=fired)
+        if rec is not None:
+            rec.launches.append(("server_apply", dict(
+                D=st.v.shape[0], A=due.shape[0], arr=has_arr,
+                fired=fired.sum() if preds.cascades else 0,
+                hit=ovf_hit.any() if far_tier else False,
+                buffered=strat.buffered,
+                flush=flush if strat.buffered else False)))
         upd_vec, upd_kvec, bc_v = st.upd_vec, st.upd_kvec, st.bc_v
         ovf_vec, ovf_kvec, buf_vec = st.ovf_vec, st.ovf_kvec, st.buf_vec
-        w = (tick_deliver(st.w, st.U, bc_v, best, take, eta)
-             if preds.deliver_rows else st.w)
+        w = st.w
+        if preds.deliver_rows:
+            with maybe_span(rec, "deliver"):
+                w = tick_deliver(st.w, st.U, bc_v, best, take, eta)
+            if rec is not None:
+                rec.launches.append(("tick_deliver", dict(
+                    C=w.shape[0], D=w.shape[1], nt=take.sum())))
         U = st.U
         if preds.any_block:
-            w, U = self.ltask.run_block(w, U, st.i, st.h, n, eta,
-                                        self.b_stat)
+            with maybe_span(rec, "client_block", device=True, alloc=True):
+                w, U = self.ltask.run_block(w, U, st.i, st.h, n, eta,
+                                            self.b_stat)
 
         messages, part, bytes_up = st.messages, st.part, st.bytes_up
         if preds.any_done:
@@ -512,35 +555,40 @@ class DeviceCohortEngine:
             # the ring scatter: one row per near slot, or per (slot,
             # sender-k stratum) under FedAsync, sl-major; then, on ticks
             # that route updates past the ring, the far groups' rows
-            if strat.stratified:
-                masks = oh_ls.reshape(-1, L * R).T
-                rows = upd_kvec.reshape(L * R, self.D)
-            else:
-                masks = oh_l.T
-                rows = upd_vec
-            G = rows.shape[0]
-            wgt = eta[None, :] * masks.to(F32)                      # [G, C]
-            if preds.any_far:
-                wgt = torch.cat([wgt, self._far_weights(eta, k, far)])
-            # the rows pass under the whole axis's partition, its block
-            # partials (and the ring counts) gathered from every rank
-            w, U, partial, ring = axis.partials(
-                sent, w, U, wgt, done, eta, dp_on=self.dp_on, ints=ring)
-            c_lr, c_ls, c_l = ring.split([L * R, L * R, L])
-            upd_cnt = upd_cnt + c_lr.reshape(L, R)
-            upd_ks = upd_ks + c_ls.reshape(L, R)
-            ops[OP_RING_SCATTERS] += (c_l > 0).sum(dtype=I32)
-            any_g = (c_ls if strat.stratified else c_l) > 0
-            if preds.any_far:
-                any_g = torch.cat([any_g, self._far_on])
-            out = tick_scatter_finish(partial, rows, any_g)
-            if strat.stratified:
-                upd_kvec = out[:G].reshape(L, R, self.D)
-            else:
-                upd_vec = out[:G]
-            if preds.any_far:
-                ovf_vec, ovf_kvec = self._far_insert(out[G:], far, ovf_vec,
-                                                     ovf_kvec)
+            with maybe_span(rec, "ring_scatter"):
+                if strat.stratified:
+                    masks = oh_ls.reshape(-1, L * R).T
+                    rows = upd_kvec.reshape(L * R, self.D)
+                else:
+                    masks = oh_l.T
+                    rows = upd_vec
+                G = rows.shape[0]
+                wgt = eta[None, :] * masks.to(F32)                  # [G, C]
+                if preds.any_far:
+                    wgt = torch.cat([wgt, self._far_weights(eta, k, far)])
+                # the rows pass under the whole axis's partition, its block
+                # partials (and the ring counts) gathered from every rank
+                w, U, partial, ring = axis.partials(
+                    sent, w, U, wgt, done, eta, dp_on=self.dp_on, ints=ring)
+                c_lr, c_ls, c_l = ring.split([L * R, L * R, L])
+                upd_cnt = upd_cnt + c_lr.reshape(L, R)
+                upd_ks = upd_ks + c_ls.reshape(L, R)
+                ops[OP_RING_SCATTERS] += (c_l > 0).sum(dtype=I32)
+                any_g = (c_ls if strat.stratified else c_l) > 0
+                if preds.any_far:
+                    any_g = torch.cat([any_g, self._far_on])
+                out = tick_scatter_finish(partial, rows, any_g)
+                if rec is not None:
+                    rec.launches.append(("tick_scatter_finish", dict(
+                        nblk=partial.shape[0], G=partial.shape[1],
+                        D=partial.shape[2])))
+                if strat.stratified:
+                    upd_kvec = out[:G].reshape(L, R, self.D)
+                else:
+                    upd_vec = out[:G]
+                if preds.any_far:
+                    ovf_vec, ovf_kvec = self._far_insert(out[G:], far,
+                                                         ovf_vec, ovf_kvec)
 
         if not preds.any_done:
             i_new = st.i        # same tensor: the update draws stay cached
@@ -561,23 +609,36 @@ class DeviceCohortEngine:
         weighted sum (agg): the ring scatter re-weights by arrival slot.
         The normals of this rank's rows are those rows of the whole
         ``[C, D]`` draw."""
-        wts = eta * done.to(F32)
-        key = prng.fold_in(self._noise_base, t)            # CPU scalar key
-        lo, hi = self.axis.lo, self.axis.hi
-        if self.dp_rng == "in_kernel":
-            sent, _ = cohort_clip_noise_prng(
-                U, key, wts, done, clip=self.dp_round_clip,
-                noise_scale=self.noise_scale, with_agg=False,
-                row_offset=lo)
+        rec = self._spans
+        with maybe_span(rec, "clip_noise", device=True, alloc=True):
+            wts = eta * done.to(F32)
+            key = prng.fold_in(self._noise_base, t)        # CPU scalar key
+            lo, hi = self.axis.lo, self.axis.hi
+            if self.dp_rng == "in_kernel":
+                with maybe_span(rec, "clip_noise_kernel"):
+                    sent, _ = cohort_clip_noise_prng(
+                        U, key, wts, done, clip=self.dp_round_clip,
+                        noise_scale=self.noise_scale, with_agg=False,
+                        row_offset=lo)
+                if rec is not None:
+                    rec.launches.append(("cohort_clip_noise_prng", dict(
+                        C=U.shape[0], D=U.shape[1], nd=done.sum())))
+                return sent
+            noise = None
+            if self.noise_scale > 0.0:
+                with maybe_span(rec, "noise_draw"):
+                    noise = prng.normal_rows(key, (self.C, self.D), lo, hi,
+                                             device=self.device)
+            with maybe_span(rec, "clip_noise_kernel"):
+                sent, _ = cohort_clip_noise(U, noise, wts, done,
+                                            clip=self.dp_round_clip,
+                                            noise_scale=self.noise_scale,
+                                            with_agg=False)
+            if rec is not None:
+                rec.launches.append(("cohort_clip_noise", dict(
+                    C=U.shape[0], D=U.shape[1], nd=done.sum(),
+                    clip=self.dp_round_clip > 0.0)))
             return sent
-        noise = (prng.normal_rows(key, (self.C, self.D), lo, hi,
-                                  device=self.device)
-                 if self.noise_scale > 0.0 else None)
-        sent, _ = cohort_clip_noise(U, noise, wts, done,
-                                    clip=self.dp_round_clip,
-                                    noise_scale=self.noise_scale,
-                                    with_agg=False)
-        return sent
 
     def _far_plan(self, t, grp, grp_n, cnt, cnt_ks, far_n, any_far, ovf_at,
                   ovf_cnt, ovf_ks, err, ovf_hwm, far_msgs, ops):
@@ -664,21 +725,29 @@ class DeviceCohortEngine:
         """Advance ``self._st`` until ``server_k >= target_k``, the tick
         budget runs out or the overflow bucket's error latch is set;
         returns ``server_k``."""
-        st = self._st
-        tick, sk, err = torch.stack([st.tick, st.server_k, st.err]).tolist()
-        self.host_syncs["segment"] += 1
-        while sk < target_k and tick < tick_limit and err == 0:
-            st, p = self._tick(st, tick + 1, sk)
-            tick, sk, err = tick + 1, sk + p.cascades, p.err
-            had_block = p.any_block
-            if (self.fuse_ticks and sk < target_k and tick < tick_limit
-                    and err == 0 and p.next_no_block):
-                # a protocol-only next tick rides in this iteration
-                st, p = self._tick(st, tick + 1, sk)
+        rec = self._spans
+        with maybe_span(rec, "segment"):
+            st = self._st
+            tick, sk, err = torch.stack([st.tick, st.server_k,
+                                         st.err]).tolist()
+            self.host_syncs["segment"] += 1
+            while sk < target_k and tick < tick_limit and err == 0:
+                with maybe_span(rec, "tick", alloc=True, t=tick + 1,
+                                fused=False):
+                    st, p = self._tick(st, tick + 1, sk)
                 tick, sk, err = tick + 1, sk + p.cascades, p.err
-                had_block = had_block or p.any_block
-            st = st._replace(iters=st.iters + self._iter_inc[int(had_block)])
-        self._st = st
+                had_block = p.any_block
+                if (self.fuse_ticks and sk < target_k and tick < tick_limit
+                        and err == 0 and p.next_no_block):
+                    # a protocol-only next tick rides in this iteration
+                    with maybe_span(rec, "tick", alloc=True, t=tick + 1,
+                                    fused=True):
+                        st, p = self._tick(st, tick + 1, sk)
+                    tick, sk, err = tick + 1, sk + p.cascades, p.err
+                    had_block = had_block or p.any_block
+                st = st._replace(
+                    iters=st.iters + self._iter_inc[int(had_block)])
+            self._st = st
         return sk
 
     @property
@@ -716,7 +785,7 @@ class DeviceCohortEngine:
                 lat_tail_ticks=self._plan.max_lat_ticks,
                 duty=self._plan.duty)
         next_eval = eval_every
-        timer = self.timer = PhaseTimer()
+        timer = self.timer = SpanRecorder()
         first_segment = True
         while True:
             target = min(next_eval, max_rounds)

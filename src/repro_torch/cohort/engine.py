@@ -62,7 +62,7 @@ from repro_torch.kernels.cohort_dp import cohort_clip_noise
 from repro_torch.kernels.tick_fused import (server_apply, tick_deliver,
                                             tick_scatter_finish)
 from repro_torch.scenarios import ScenarioPlan, get_scenario
-from repro_torch.telemetry import (STALE_BINS, PhaseTimer, build_report,
+from repro_torch.telemetry import (STALE_BINS, SpanRecorder, build_report,
                                    open_trace, staleness_bin,
                                    update_msg_bytes)
 from repro_torch.telemetry.costs import (OP_BLOCK_TICKS, OP_BUCKET_APPLIES,
@@ -484,7 +484,7 @@ class CohortEngine:
                 lat_tail_ticks=plan.max_lat_ticks if plan is not None else 1,
                 duty=plan.duty if plan is not None else 1.0)
         next_eval = eval_every
-        timer = self.timer = PhaseTimer()
+        timer = self.timer = SpanRecorder()
         run_t0 = time.perf_counter()
         first = True
         seg_t0 = run_t0

@@ -34,6 +34,7 @@ import torch
 from repro_torch import prng, tree
 from repro_torch.cohort.tasks import _client_view
 from repro_torch.core.tasks import BatchModelTask, _promoted, clip_tree
+from repro_torch.telemetry import maybe_span
 
 F32 = torch.float32
 
@@ -90,6 +91,10 @@ class CohortBatchModelTask:
     drive it unchanged.  Needs a seed-addressed batcher
     (``batch_from_key``; ``repro_torch.data.SeedAddressedBatcher``)."""
 
+    #: the engine's span recorder (``DeviceCohortEngine.spans``); None
+    #: records nothing
+    spans = None
+
     def __init__(self, task: BatchModelTask, n_clients: int, *,
                  seed: int = 0, device=None):
         batcher = task.data_fn
@@ -138,13 +143,20 @@ class CohortBatchModelTask:
         take this call); eta: [C] f32.  Returns new blocks (the inputs
         are not written).  Each step: g = grad of the loss (clipped when
         ``dp_clip > 0``) times ``j < n[c]``; u += g; p -= eta[c] * g, cast
-        back to the leaf's dtype."""
-        task, flt = self.task, self.flattener
+        back to the leaf's dtype.
+
+        With a recorder in ``spans``: ``client_block.clone`` (the round
+        keys and the copies of both blocks), per client and step ``step``
+        (allocator counters) over ``batch``, ``loss_and_grad`` (device
+        time) and ``update`` (clip and update), and per client
+        ``client_block.writeback``."""
+        task, flt, rec = self.task, self.flattener, self.spans
         clip = task.dp_clip
         batch_from_key = task.data_fn.batch_from_key
-        round_keys = prng.fold_in(self.base_keys, i.to(self.device))
-        h64 = h.to(device=self.device, dtype=torch.int64)
-        w_out, U_out = w.clone(), U.clone()
+        with maybe_span(rec, "client_block.clone"):
+            round_keys = prng.fold_in(self.base_keys, i.to(self.device))
+            h64 = h.to(device=self.device, dtype=torch.int64)
+            w_out, U_out = w.clone(), U.clone()
         for c in range(self.C):
             # f32 leaves are views of the output rows, updated in place;
             # narrower ones are copies, written back after the steps
@@ -152,19 +164,24 @@ class CohortBatchModelTask:
             upd = tree.leaves(flt.unflatten(U_out[c], dtype=F32))
             eta_c = eta[c]
             for j in range(block):
-                batch = batch_from_key(prng.fold_in(round_keys[c],
-                                                    h64[c] + j))
-                _, g = task.loss_and_grad(
-                    tree.unflatten(flt.skeleton, params), batch)
-                if clip > 0.0:
-                    g = tree.leaves(clip_tree(g, clip))
-                act = (j < n[c]).to(F32)
-                with torch.no_grad():
-                    for p, u, gl in zip(params, upd, g):
-                        gl = _promoted(gl) * act
-                        u.add_(gl)
-                        p.copy_(_promoted(p) - eta_c * gl)
-            for o, s, p in zip(flt.offsets, flt.sizes, params):
-                if p.dtype != F32:
-                    w_out[c, o:o + s] = p.reshape(-1).to(F32)
+                with maybe_span(rec, "step", alloc=True):
+                    with maybe_span(rec, "batch"):
+                        batch = batch_from_key(prng.fold_in(round_keys[c],
+                                                            h64[c] + j))
+                    with maybe_span(rec, "loss_and_grad", device=True):
+                        _, g = task.loss_and_grad(
+                            tree.unflatten(flt.skeleton, params), batch)
+                    with maybe_span(rec, "update"):
+                        if clip > 0.0:
+                            g = tree.leaves(clip_tree(g, clip))
+                        act = (j < n[c]).to(F32)
+                        with torch.no_grad():
+                            for p, u, gl in zip(params, upd, g):
+                                gl = _promoted(gl) * act
+                                u.add_(gl)
+                                p.copy_(_promoted(p) - eta_c * gl)
+            with maybe_span(rec, "client_block.writeback"):
+                for o, s, p in zip(flt.offsets, flt.sizes, params):
+                    if p.dtype != F32:
+                        w_out[c, o:o + s] = p.reshape(-1).to(F32)
         return w_out, U_out

@@ -40,7 +40,7 @@ import numpy as np
 from repro_torch import prng
 from repro_torch.core.protocol import Client, Server
 from repro_torch.devices import resolve_device
-from repro_torch.telemetry import (STALE_BINS, PhaseTimer,
+from repro_torch.telemetry import (STALE_BINS, SpanRecorder,
                                    broadcast_msg_bytes, build_report,
                                    model_flat_dim, open_trace, staleness_bin,
                                    update_msg_bytes)
@@ -224,7 +224,7 @@ class AsyncFLSimulator:
         """Run until the server has completed ``max_rounds`` broadcasts."""
         evals = eval_fn or (lambda w: self.task.metrics(w))
         next_eval = eval_every
-        timer = self.timer = PhaseTimer()
+        timer = self.timer = SpanRecorder()
         run_t0 = time.perf_counter()
         while self.events and self.server.k < max_rounds:
             ev = heapq.heappop(self.events)

@@ -12,8 +12,8 @@ from repro_torch.telemetry.report import (
     update_msg_bytes,
 )
 from repro_torch.telemetry.spans import (
-    PhaseTimer, SpanRecorder, trace_to_perfetto, validate_trace_events,
-    write_perfetto,
+    SpanRecorder, device_events, maybe_span, trace_to_perfetto,
+    validate_trace_events, write_perfetto,
 )
 from repro_torch.telemetry.trace import JsonlTraceWriter, open_trace
 
@@ -22,7 +22,7 @@ __all__ = [
     "build_report", "model_flat_dim", "participation_sizes",
     "staleness_bin", "update_msg_bytes",
     "JsonlTraceWriter", "open_trace",
-    "PhaseTimer", "SpanRecorder", "trace_to_perfetto",
+    "SpanRecorder", "device_events", "maybe_span", "trace_to_perfetto",
     "validate_trace_events", "write_perfetto",
     "N_OPS", "OP_NAMES", "check_ops", "cost_decomposition", "ops_dict",
     "ops_vector", "zero_ops",

@@ -2,10 +2,16 @@
 
 ``SpanRecorder`` accumulates named wall-clock phases for
 ``MetricsReport.wall`` (seconds and re-entry counts) and keeps every
-individual span — (name, track, start, duration) — so a run can be
-rendered as a timeline instead of a histogram.  Host clock only: device
-work is asynchronous, so an engine closes a phase only after the work it
-times has finished (the engine's host reads do that).
+individual span — (name, track, start, duration, parent, tick) — so a
+run can be rendered as a timeline instead of a histogram.  A span times
+the host: device work is asynchronous, so a span over a launch ends when
+the launch is enqueued.  Its absolute edges are on ``time.time_ns()``,
+the clock of ``torch.profiler``'s events, so the host spans and the
+device trace of one run line up (``device_events``); a span opened with
+``device=True`` also times its device work with two CUDA events, and one
+opened with ``alloc=True`` counts the caching allocator's device
+allocations, frees, retries and syncs over it.  The device cohort engine
+records its tick's spans into ``engine.spans`` when one is set.
 
 Export targets the Chrome trace-event JSON the Perfetto UI loads
 (https://ui.perfetto.dev, legacy JSON importer): complete ``"X"`` slices
@@ -13,8 +19,9 @@ for engine phases and eval segments, instant ``"i"`` + flow ``"s"``/
 ``"f"`` + async ``"b"``/``"e"`` events for message lifecycles.  Two
 clocks coexist as two trace *processes*:
 
-  * **wall** — real seconds from the recorder's epoch (first_segment/
-    steady/eval engine phases, optionally bracketed with
+  * **wall** — real seconds from the recorder's epoch, or from a
+    shared ``time.time_ns()`` origin (first_segment/steady/eval engine
+    phases, the device engine's tick spans, optionally bracketed with
     ``torch.profiler.record_function`` so the same names show up inside
     a ``torch.profiler`` trace);
   * **virtual protocol seconds** — reconstructed from the JSONL trace
@@ -34,16 +41,16 @@ from __future__ import annotations
 
 import json
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import (Any, Dict, IO, Iterable, List, Optional, Sequence,
-                    Union)
+                    Tuple, Union)
 
 import torch
 
 from repro_torch.telemetry.trace import _coerce
 
 __all__ = [
-    "SpanRecorder", "PhaseTimer", "trace_to_perfetto",
+    "SpanRecorder", "device_events", "maybe_span", "trace_to_perfetto",
     "validate_trace_events", "write_perfetto",
 ]
 
@@ -53,21 +60,52 @@ class SpanRecorder:
 
     ``phases``/``counts``/``as_dict`` build every engine's
     ``MetricsReport.wall``; ``spans`` holds one entry per ``phase()``/
-    ``add()`` with start times relative to the recorder's epoch (the
-    first recorded instant), and ``to_trace_events`` renders them as
-    Perfetto slices — one thread track per phase name, so re-entrant
-    phases stay non-overlapping per track (invariant INV-SPAN).  With
-    ``annotate`` each ``phase()`` is also a
-    ``torch.profiler.record_function`` range of the same name.
+    ``add()``, appended as it closes, with
+
+    * ``t0``/``dur``: seconds from the recorder's epoch (the first
+      recorded instant, ``time.perf_counter``);
+    * ``start_ns``/``end_ns``: ``time.time_ns()``, the clock of
+      ``torch.profiler``'s (kineto's) events, so a span can be laid
+      beside a device trace;
+    * ``id`` (in opening order), ``parent`` (the ``id`` of the span open
+      when it began, or None) and ``t`` (the tick it belongs to: its own
+      ``t=`` argument, else its parent's), so the spans of one engine
+      tick share an identifier;
+    * ``counters``: what ``count()`` added while it was the innermost
+      open span, and the allocator's deltas over it (``alloc=True``);
+    * ``device_s``: with ``device=True`` and a CUDA recorder, the device
+      time between two CUDA events recorded on the current stream at
+      its edges (no sync; filled in by ``resolve()``).
+
+    ``to_trace_events`` renders the spans as Perfetto slices — one
+    thread track per phase name, so re-entrant phases stay
+    non-overlapping per track (invariant INV-SPAN).  With ``annotate``
+    each ``phase()`` is also a ``torch.profiler.record_function`` range
+    of the same name.  ``device`` is where the recorded work runs: the
+    CUDA events and allocator counters are taken only on a CUDA device
+    and are no-ops elsewhere.  ``launches`` holds the (kernel, arguments)
+    of each launch the program records there, device scalars left on the
+    device.
     """
 
-    def __init__(self, *, annotate: bool = False):
+    #: ``torch.cuda.memory_stats`` counters recorded by ``alloc=True``
+    ALLOC_STATS = ("num_device_alloc", "num_device_free",
+                   "num_alloc_retries", "num_sync_all_streams")
+
+    def __init__(self, *, annotate: bool = False, device=None):
         self.phases: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
-        # (name, track, t0_s, dur_s, args) — t0 relative to epoch
         self.spans: List[Dict[str, Any]] = []
         self.epoch: Optional[float] = None
+        self.launches: List[Tuple[str, Dict[str, Any]]] = []
         self._annotate = bool(annotate)
+        self.device = torch.device(device) if device is not None else None
+        self._cuda = self.device is not None and self.device.type == "cuda"
+        # the open spans, innermost last: [id, t, counters]
+        self._open: List[list] = []
+        self._next_id = 0
+        # spans whose CUDA events wait for resolve()
+        self._pending: List[tuple] = []
 
     # -- recording --------------------------------------------------------
     def _now(self) -> float:
@@ -76,20 +114,50 @@ class SpanRecorder:
             self.epoch = t
         return t - self.epoch
 
+    def _alloc_stats(self) -> List[int]:
+        st = torch.cuda.memory_stats(self.device)
+        return [int(st.get(k, 0)) for k in self.ALLOC_STATS]
+
     @contextmanager
     def phase(self, name: str, *, track: Optional[str] = None,
-              **args: Any):
-        t0 = self._now()
+              device: bool = False, alloc: bool = False, **args: Any):
+        parent = self._open[-1] if self._open else None
+        t = args.get("t", parent[1] if parent else None)
+        frame = [self._next_id, t, {}]
+        self._next_id += 1
+        self._open.append(frame)
+        events = alloc0 = None
+        if self._cuda:
+            if alloc:
+                alloc0 = self._alloc_stats()
+            if device:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
         ann = None
         if self._annotate:
             ann = torch.profiler.record_function(name)
             ann.__enter__()
+        ns0, t0 = time.time_ns(), self._now()
         try:
             yield
         finally:
+            t1, ns1 = self._now(), time.time_ns()
             if ann is not None:
                 ann.__exit__(None, None, None)
-            self._record(name, track, t0, self._now() - t0, args)
+            if events is not None:
+                events[1].record()
+            if alloc0 is not None:
+                for k, a, b in zip(self.ALLOC_STATS, alloc0,
+                                   self._alloc_stats()):
+                    frame[2][k] = frame[2].get(k, 0) + b - a
+            self._open.pop()
+            span = self._record(name, track, t0, t1 - t0, args,
+                                start_ns=ns0, end_ns=ns1, id=frame[0],
+                                parent=parent[0] if parent else None, t=t,
+                                counters=frame[2])
+            if events is not None:
+                self._pending.append((span, events))
 
     span = phase
 
@@ -98,16 +166,40 @@ class SpanRecorder:
         """Record a stretch that just ended (duration known, end = now)."""
         dur = float(seconds)
         t0 = self._now() - dur
-        self._record(name, track, max(t0, 0.0), dur, args)
+        ns1 = time.time_ns()
+        parent = self._open[-1] if self._open else None
+        self._record(name, track, max(t0, 0.0), dur, args,
+                     start_ns=ns1 - int(dur * 1e9), end_ns=ns1,
+                     id=self._next_id, parent=parent[0] if parent else None,
+                     t=args.get("t", parent[1] if parent else None),
+                     counters={})
+        self._next_id += 1
 
     def _record(self, name: str, track: Optional[str], t0: float,
-                dur: float, args: Dict[str, Any]) -> None:
+                dur: float, args: Dict[str, Any], **more: Any
+                ) -> Dict[str, Any]:
         self.phases[name] = self.phases.get(name, 0.0) + dur
         self.counts[name] = self.counts.get(name, 0) + 1
-        self.spans.append(dict(name=name, track=track or name, t0=t0,
-                               dur=dur, args=dict(args)))
+        span = dict(name=name, track=track or name, t0=t0, dur=dur,
+                    args=dict(args), **more)
+        self.spans.append(span)
+        return span
 
-    # -- aggregates (MetricsReport.wall) ----------------------------------
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to counter ``name`` of the innermost open span (none
+        open: nothing is counted)."""
+        if self._open:
+            c = self._open[-1][2]
+            c[name] = c.get(name, 0) + n
+
+    def resolve(self) -> None:
+        """Each ``device=True`` span's ``device_s`` from its CUDA events;
+        call after the device has finished the recorded work."""
+        for span, (e0, e1) in self._pending:
+            span["device_s"] = e0.elapsed_time(e1) / 1e3
+        self._pending = []
+
+    # -- aggregates -------------------------------------------------------
     def as_dict(self, suffix: str = "_s") -> Dict[str, float]:
         """Accumulated seconds per phase (``<name>_s``) AND how many
         spans fed each accumulation (``<name>_n``)."""
@@ -116,20 +208,86 @@ class SpanRecorder:
         out.update({f"{k}_n": n for k, n in self.counts.items()})
         return out
 
+    def self_seconds(self) -> Dict[int, float]:
+        """Each span's self time by ``id``: its duration less its
+        children's."""
+        out = {s["id"]: s["dur"] for s in self.spans}
+        for s in self.spans:
+            if s.get("parent") in out:
+                out[s["parent"]] -= s["dur"]
+        return out
+
     # -- timeline export --------------------------------------------------
     def to_trace_events(self, builder: Optional["_EventBuilder"] = None,
-                        *, process: str = "wall") -> List[Dict[str, Any]]:
-        """Render the recorded spans as Perfetto ``"X"`` slices."""
+                        *, process: str = "wall",
+                        origin_ns: Optional[int] = None
+                        ) -> List[Dict[str, Any]]:
+        """Render the recorded spans as Perfetto ``"X"`` slices, each with
+        its parent's name (``parent``) and its tick (``t``) among its args
+        where it has them.  Times are from the recorder's epoch, or with
+        ``origin_ns`` from that instant of ``time.time_ns()`` (the clock
+        shared with other recorders and with ``torch.profiler``'s
+        events)."""
         b = builder or _EventBuilder()
+        names = {s.get("id"): s["name"] for s in self.spans}
         for s in self.spans:
-            b.slice(process, s["track"], s["name"],
-                    ts_us=s["t0"] * 1e6, dur_us=s["dur"] * 1e6,
-                    args=s["args"])
+            args = dict(s["args"])
+            if s.get("parent") is not None:
+                args["parent"] = names[s["parent"]]
+            if s.get("t") is not None:
+                args["t"] = s["t"]
+            if origin_ns is None:
+                ts, dur = s["t0"] * 1e6, s["dur"] * 1e6
+            else:
+                ts = (s["start_ns"] - origin_ns) / 1e3
+                dur = (s["end_ns"] - s["start_ns"]) / 1e3
+            b.slice(process, s["track"], s["name"], ts_us=ts, dur_us=dur,
+                    args=args)
         return b.events
 
 
-class PhaseTimer(SpanRecorder):
-    """Backwards-compatible name: a SpanRecorder."""
+_OFF = nullcontext()
+
+
+def maybe_span(rec: Optional[SpanRecorder], name: str, **kw: Any):
+    """``rec.phase(name, **kw)``, or one shared no-op context where
+    ``rec`` is None: a recorder left off makes no span, no CUDA event
+    and no allocator read."""
+    return _OFF if rec is None else rec.phase(name, **kw)
+
+
+def _device_type(e) -> str:
+    return str(e.device_type()).split(".")[-1].upper()
+
+
+def device_events(events, builder: Optional["_EventBuilder"] = None, *,
+                  origin_ns: int, device_type: str = "CUDA",
+                  process: str = "device") -> List[Dict[str, Any]]:
+    """``torch.profiler``'s kineto events (``prof.profiler.kineto_results
+    .events()``) of ``device_type`` as ``"X"`` slices of ``process``,
+    times from ``origin_ns`` of ``time.time_ns()`` (the kineto clock, so
+    they sit under a recorder's spans rendered from the same origin).
+    One track per device and stream (per thread for ``"CPU"``); an
+    operation that overlaps the one before it on its track (nested host
+    operations) goes to the next free lane of that track."""
+    b = builder or _EventBuilder()
+    lanes: Dict[str, List[int]] = {}
+    what = "stream" if device_type == "CUDA" else "thread"
+    ops = sorted((e.start_ns(), e.end_ns(), e.name(),
+                  f"{device_type.lower()} {e.device_index()} {what} "
+                  f"{e.device_resource_id()}")
+                 for e in events if _device_type(e) == device_type
+                 and e.duration_ns() > 0 and e.start_ns() >= origin_ns)
+    for a, z, name, track in ops:
+        ends = lanes.setdefault(track, [])
+        lane = next((n for n, end in enumerate(ends) if end <= a),
+                    len(ends))
+        if lane == len(ends):
+            ends.append(z)
+        ends[lane] = z
+        b.slice(process, track if lane == 0 else f"{track} ({lane})", name,
+                ts_us=(a - origin_ns) / 1e3, dur_us=(z - a) / 1e3)
+    return b.events
 
 
 class _EventBuilder:

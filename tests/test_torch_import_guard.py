@@ -1,8 +1,7 @@
 """The port stands alone: no jax, no reference package, no CPU fallback.
 
-``repro_torch``, ``chip_smoke.py``, ``chip_profile.py``,
-``chip_walls.py`` and ``chip_passes.py`` import torch, numpy and the
-standard library only; a
+``repro_torch``, ``chip_smoke.py``, ``chip_walls.py`` and
+``chip_passes.py`` import torch, numpy and the standard library only; a
 fresh interpreter that imports the port and runs a small CPU simulation
 loads neither ``jax`` nor any ``repro`` module; and the entry point
 refuses to run without CUDA unless the caller asks for the CPU.
@@ -22,7 +21,6 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 
 def _port_files():
     out = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
-                                           "chip_profile.py",
                                            "chip_walls.py",
                                            "chip_passes.py")]
     for dirpath, _, files in os.walk(PORT):

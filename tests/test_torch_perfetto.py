@@ -22,8 +22,8 @@ import torch
 
 import repro_torch as rt
 from repro.telemetry import spans as ref_spans
-from repro_torch.telemetry import (JsonlTraceWriter, PhaseTimer,
-                                   SpanRecorder, trace_to_perfetto,
+from repro_torch.telemetry import (JsonlTraceWriter, SpanRecorder,
+                                   maybe_span, trace_to_perfetto,
                                    validate_trace_events, write_perfetto)
 from repro_torch.telemetry.__main__ import main, timeline
 from repro_torch.telemetry.spans import _EventBuilder, merge_trace_events
@@ -63,7 +63,7 @@ def runs():
 # --- span recorder -----------------------------------------------------------
 
 def test_phase_timer_accumulates():
-    t = PhaseTimer()
+    t = SpanRecorder()
     with t.phase("a"):
         pass
     with t.phase("a"):
@@ -124,6 +124,132 @@ def test_annotate_brackets_spans_in_the_torch_profiler():
     names = {e.name for e in prof.events()}
     assert {"steady", "eval"} <= names
     assert rec.counts == {"steady": 1, "eval": 1}
+
+
+def test_span_clock_is_the_profilers():
+    """A span's ``time.time_ns()`` edges contain the kineto event of the
+    torch operation it brackets: the host spans and a ``torch.profiler``
+    trace share one clock."""
+    rec = SpanRecorder()
+    x = torch.randn(256, 256)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with rec.phase("matmul"):
+            x @ x
+    (span,) = rec.spans
+    mm = [e for e in prof.profiler.kineto_results.events()
+          if e.name() == "aten::mm"]
+    assert len(mm) == 1
+    assert span["start_ns"] <= mm[0].start_ns()
+    assert mm[0].end_ns() <= span["end_ns"]
+    # the epoch seconds are kept beside the absolute edges
+    assert span["dur"] == pytest.approx(
+        (span["end_ns"] - span["start_ns"]) / 1e9, abs=1e-4)
+
+
+def test_span_parent_tick_self_time_and_counters():
+    rec = SpanRecorder()
+    with rec.phase("segment"):
+        with rec.phase("tick", t=7, fused=False):
+            with rec.phase("tick.integer"):
+                rec.count("launches", 3)
+            rec.count("launches")
+            with rec.phase("server_step"):
+                pass
+        rec.count("ticks")
+    rec.count("nothing open")            # no span open: not counted
+    by = {s["name"]: s for s in rec.spans}
+    assert [s["name"] for s in rec.spans] == [
+        "tick.integer", "server_step", "tick", "segment"]
+    assert by["segment"]["parent"] is None
+    assert by["tick"]["parent"] == by["segment"]["id"]
+    assert by["tick.integer"]["parent"] == by["tick"]["id"]
+    # the tick's identifier is shared by its children, not its parent
+    assert by["tick"]["t"] == by["tick.integer"]["t"] == \
+        by["server_step"]["t"] == 7
+    assert by["segment"]["t"] is None
+    assert by["tick"]["args"] == {"t": 7, "fused": False}
+    assert by["tick.integer"]["counters"] == {"launches": 3}
+    assert by["tick"]["counters"] == {"launches": 1}
+    assert by["segment"]["counters"] == {"ticks": 1}
+    selfs = rec.self_seconds()
+    assert selfs[by["tick"]["id"]] == pytest.approx(
+        by["tick"]["dur"] - by["tick.integer"]["dur"]
+        - by["server_step"]["dur"])
+    assert selfs[by["server_step"]["id"]] == by["server_step"]["dur"]
+    for s in rec.spans:
+        assert s["start_ns"] <= s["end_ns"]
+        if s["parent"] is not None:
+            p = next(q for q in rec.spans if q["id"] == s["parent"])
+            assert p["start_ns"] <= s["start_ns"] <= s["end_ns"] \
+                <= p["end_ns"]
+    # the parent's name and the tick reach the slices' args
+    ev = {e["name"]: e for e in rec.to_trace_events() if e["ph"] == "X"}
+    assert ev["tick.integer"]["args"] == {"parent": "tick", "t": 7}
+    assert ev["tick"]["args"] == {"t": 7, "fused": False,
+                                  "parent": "segment"}
+    assert ev["segment"]["args"] == {}
+
+
+class _FakeEvent:
+    """A CUDA event on the host's clock."""
+
+    def __init__(self, enable_timing=False):
+        self.at = None
+
+    def record(self):
+        import time
+        self.at = time.perf_counter()
+
+    def elapsed_time(self, end):
+        return (end.at - self.at) * 1e3
+
+
+def test_device_spans_resolve_and_allocator_counters(monkeypatch):
+    """On a CUDA recorder, ``device=True`` records an event pair resolved
+    only by ``resolve()``, and ``alloc=True`` counts the allocator's
+    deltas over the span; on a CPU recorder both flags do nothing."""
+    stats = dict.fromkeys(SpanRecorder.ALLOC_STATS, 0)
+
+    def memory_stats(device=None):
+        stats["num_device_alloc"] += 1      # one per read
+        return dict(stats)
+
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "memory_stats", memory_stats)
+    rec = SpanRecorder(device="cuda")
+    with rec.phase("client_block", device=True, alloc=True):
+        with rec.phase("loss_and_grad", device=True):
+            stats["num_device_free"] += 2
+            stats["num_alloc_retries"] += 1
+    by = {s["name"]: s for s in rec.spans}
+    assert "device_s" not in by["client_block"]
+    rec.resolve()
+    assert by["client_block"]["device_s"] >= by["loss_and_grad"]["device_s"]
+    assert by["loss_and_grad"]["device_s"] >= 0
+    assert by["client_block"]["counters"] == {
+        "num_device_alloc": 1, "num_device_free": 2,
+        "num_alloc_retries": 1, "num_sync_all_streams": 0}
+    assert by["loss_and_grad"]["counters"] == {}
+    rec.resolve()                               # idempotent
+    cpu = SpanRecorder(device="cpu")
+    with cpu.phase("client_block", device=True, alloc=True):
+        pass
+    cpu.resolve()
+    assert "device_s" not in cpu.spans[0] and cpu.spans[0]["counters"] == {}
+    assert stats["num_device_alloc"] == 2       # the CPU read nothing
+
+
+def test_maybe_span_off_is_one_shared_no_op():
+    assert maybe_span(None, "tick") is maybe_span(None, "client_block",
+                                                  device=True, alloc=True)
+    with maybe_span(None, "tick"):
+        with maybe_span(None, "tick"):          # re-entrant
+            pass
+    rec = SpanRecorder()
+    with maybe_span(rec, "tick", t=1):
+        pass
+    assert rec.counts == {"tick": 1}
 
 
 def test_engine_reports_carry_wall_phases(runs):
@@ -292,6 +418,35 @@ def test_telemetry_cli_capture_and_convert(tmp_path, engine):
     doc2 = json.loads(out2.read_text())
     assert validate_trace_events(doc2) == []
     assert doc2 == json.loads(out3.read_text())
+
+
+def test_telemetry_cli_capture_profile_one_clock(tmp_path):
+    """``capture --profile``: the run under ``torch.profiler`` (CPU
+    activity here), its operations a ``device`` process on the spans'
+    clock; the document validates, and each tick's integer phase sits
+    over the operations it ran."""
+    out = tmp_path / "timeline.json"
+    assert main(["capture", "--engine", "device", "--rounds", "2",
+                 "--clients", "4", "--dp", "--profile", "--out", str(out),
+                 "--device", "cpu"]) == 0
+    doc = json.loads(out.read_text())
+    assert validate_trace_events(doc) == []
+    pids = {e["args"]["name"]: e["pid"] for e in doc["traceEvents"]
+            if e["ph"] == "M" and e["name"] == "process_name"}
+    assert set(pids) == {"protocol (virtual)", "wall", "device"}
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    dev = [e for e in xs if e["pid"] == pids["device"]]
+    wall = [e for e in xs if e["pid"] == pids["wall"]]
+    assert dev and {"segment", "tick", "tick.integer", "tick.read",
+                    "server_step", "client_block", "clip_noise",
+                    "ring_scatter", "first_segment"} <= {
+                        e["name"] for e in wall}
+    for tick in (e for e in wall if e["name"] == "tick"):
+        assert tick["args"]["t"] >= 1 and "parent" in tick["args"]
+    for span in (e for e in wall if e["name"] == "tick.integer"):
+        a, b = span["ts"], span["ts"] + span["dur"]
+        assert any(a <= e["ts"] and e["ts"] + e["dur"] <= b
+                   and e["name"].startswith("aten::") for e in dev)
 
 
 def test_telemetry_cli_capture_needs_the_card(monkeypatch, tmp_path):
