@@ -38,7 +38,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
 3. the main run: the paper's DP configuration (Fig. 1b sizes and step
    sizes, sigma = 8, clip 0.1) on MNIST-width logistic regression
    (D = 785) over C = 16384 clients, with every kernel's launch count,
-   then the same with the noise generated in the kernel;
+   then the same with the noise generated in the kernel; then the
+   client block's kernel (``cohort_logreg_block``) bit for bit against
+   its twin on one of the main run's own block ticks (its n, i, h,
+   step sizes, clip and l2; the run's last rows), with its time, its
+   bound and the twin's time;
 4. the scenarios: the same configuration under ``mobile_diurnal`` with
    FedAsync and under ``iot_straggler`` with FedBuff and a ring of 2
    ticks (updates spill into the overflow bucket), in-kernel noise
@@ -1370,10 +1374,26 @@ def main_inputs():
     return X, y, kw
 
 
+def record_blocks(eng) -> list:
+    """Keep a copy of the per-client arguments (i, h, n, eta) and the
+    block of each of the engine's client-block calls (no host sync)."""
+    calls = []
+    inner = eng.ltask.run_block
+
+    def recorded(w, U, i, h, n, eta, block, **k):
+        calls.append((i.clone(), h.clone(), n.clone(), eta.clone(), block))
+        return inner(w, U, i, h, n, eta, block, **k)
+
+    eng.ltask.run_block = recorded
+    return calls
+
+
 def phase_main(dev, X, y, kw):
     """Phase 3: the main run, with the kernels' launch counts; then the
     same configuration with the noise generated in the kernel.  Returns
-    the operand run's launches and both runs' fingerprints."""
+    the operand run's launches, both runs' fingerprints and the operand
+    run's client-block calls (``record_blocks``) with its task and last
+    rows."""
     import torch
     from repro_torch.kernels import launches
     from repro_torch.telemetry import check_ops
@@ -1384,6 +1404,7 @@ def phase_main(dev, X, y, kw):
         sim = make_sim(dev, X, y, block=m["block"], dp_rng=dp_rng, **kw)
         eng = sim.engine
         noise_ms = time_noise(eng)
+        calls = record_blocks(eng)
         torch.cuda.reset_peak_memory_stats(dev)
         launches.reset()
         with count_normal_draws() as draws:
@@ -1410,7 +1431,7 @@ def phase_main(dev, X, y, kw):
                         else "cohort_clip_noise_prng")
         other = ("cohort_clip_noise_prng" if dp_rng == "operand"
                  else "cohort_clip_noise")
-        for name in (*TICK_PATH, noise_kernel):
+        for name in (*TICK_PATH, noise_kernel, "cohort_logreg_block"):
             if counts[name] <= 0:
                 fail(f"kernel {name} was not launched on the main run "
                      f"({dp_rng})")
@@ -1434,7 +1455,87 @@ def phase_main(dev, X, y, kw):
                   f"max_epsilon={max(eps) if eps else None}")
         out[dp_rng] = counts
         fps[dp_rng] = fingerprint(sim, res)
-    return out["operand"], fps
+        if dp_rng == "operand":
+            st = eng.local_state
+            blocks = dict(task=eng.ltask, w=st.w, U=st.U, calls=calls)
+    return out["operand"], fps, blocks
+
+
+def phase_client_block(dev, blocks):
+    """Phase 3 (b): ``cohort_logreg_block`` against its twin at the main
+    run's C, D and block, on the main run's own arguments: of its block
+    ticks the one with the most distinct ``n`` (then the most steps), its
+    i, h (so its sampled rows), step sizes, clip and l2, and the run's
+    last ``w`` and ``U`` as rows; then that tick with a ragged ``n``
+    planted.  Bit for bit, one launch, idle rows unchanged; its time
+    (10-call graph; the ragged n's beside it), its bound (each step's sampled
+    row and label and index read, ``w`` and ``U`` read and written once)
+    and the twin's time.  Returns its kernels-line row."""
+    import torch
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.cohort_block import (logreg_block,
+                                                  logreg_block_ref)
+    ct, w, U = blocks["task"], blocks["w"], blocks["U"]
+    if not blocks["calls"]:
+        fail("main run made no client-block call")
+
+    def raggedness(call):
+        n = call[2]
+        return int(torch.unique(n).numel()), int(n.sum())
+
+    i, h, n, eta, b = max(blocks["calls"], key=raggedness)
+    l2, clip = ct.task.l2, ct.task.dp_clip
+    idx = ct.sample_idx(i, h, b)
+    # and the same tick with a ragged n planted (0, 1 and b among it)
+    g = torch.Generator(device=dev).manual_seed(MAIN["seed"])
+    n_rag = torch.randint(0, b + 1, n.shape, generator=g, device=dev,
+                          dtype=n.dtype)
+    n_rag[:3] = torch.tensor([0, 1, b], dtype=n.dtype)
+    for tag, nn in (("main", n), ("ragged", n_rag)):
+        launches.reset()
+        got = ct.run_block(w, U, i, h, nn, eta, b)
+        torch.cuda.synchronize()
+        if launches.LAUNCHES["cohort_logreg_block"] != 1:
+            fail(f"client block ({tag} n) launched cohort_logreg_block "
+                 f"{launches.LAUNCHES['cohort_logreg_block']} times, want 1")
+        want = logreg_block_ref(w, U, idx, nn, eta, ct.X, ct.y, l2=l2,
+                                clip=clip)
+        idle = nn <= 0
+        for what, k, p, old in zip(("w", "U"), got, want, (w, U)):
+            if not bits_equal(k, p):
+                fail(f"cohort_logreg_block {what} ({tag} n) is not bitwise "
+                     f"equal to its twin at the main run's block tick")
+            if not bits_equal(k[idle], old[idle]):
+                fail(f"cohort_logreg_block ({tag} n) changed the {what} "
+                     f"rows of clients that take no step")
+    rag_ms = median_ms(lambda: logreg_block(w, U, idx, n_rag, eta, ct.X,
+                                            ct.y, l2=l2, clip=clip))
+    C, D = w.shape
+    d = D - 1
+    steps = int(torch.clamp(n, 0, b).sum())
+    distinct = int(torch.unique(n).numel())
+    ms = median_ms(lambda: logreg_block(w, U, idx, n, eta, ct.X, ct.y, l2=l2,
+                                        clip=clip))
+    pms = event_ms(lambda: logreg_block_ref(w, U, idx, n, eta, ct.X, ct.y,
+                                            l2=l2, clip=clip), reps=2)
+    # per step: the sampled row, its label and index; per client: w and U
+    # read and written, n and eta.  Per step and feature: the dot product,
+    # the gradient, U and w (6), the clip's norm and scale (3), the l2 term
+    # (3)
+    per = 6 + (3 if clip > 0.0 else 0) + (3 if l2 > 0.0 else 0)
+    bms, by = bound(steps * (4 * d + 4 + 8) + 16 * C * D + 8 * C,
+                    steps * d * per)
+    print(f"phase client_block: cohort_logreg_block bitwise against its "
+          f"twin at C={C} D={D} b={b} steps={steps} (mean n "
+          f"{steps / C}, {distinct} distinct n) clip={clip} l2={l2}: "
+          f"ms={ms} bound_ms={bms} ({by}) plain_ms={pms}; ragged n "
+          f"(0..{b}) bitwise too, ms={rag_ms}")
+    return dict(name="cohort_logreg_block", route="cuda",
+                source="src/repro_torch/csrc/cohort_block.cu",
+                replaces="none (src/repro/cohort/tasks.py:76 block_body, "
+                "a vmapped scan)", max_abs_err=0.0, ms=ms, plain_ms=pms,
+                bound_ms=bms, bound_by=by, library_ms=None, C=C, D=D, b=b,
+                steps=steps, distinct_n=distinct, ragged_ms=rag_ms)
 
 
 def phase_scenarios(dev, X, y, kw):
@@ -4452,8 +4553,12 @@ def main() -> int:
     phase_census(dev)
     print(f"phase census: wall_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
-    counts, main_fps = phase_main(dev, X, y, kw)
+    counts, main_fps, blocks = phase_main(dev, X, y, kw)
     print(f"phase main: wall_s={time.perf_counter() - t0}")
+    t0 = time.perf_counter()
+    kernels.append(phase_client_block(dev, blocks))
+    del blocks
+    print(f"phase client_block: wall_s={time.perf_counter() - t0}")
     t0 = time.perf_counter()
     scn_counts, scn_fps = phase_scenarios(dev, X, y, kw)
     print(f"phase scenarios: wall_s={time.perf_counter() - t0}")

@@ -24,7 +24,7 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("tick_fused", "cohort_dp", "dp_clip", "flash_attention",
-           "ssd_scan")
+           "ssd_scan", "cohort_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas=-v")

@@ -3,33 +3,22 @@ client axis.
 
 ``CohortLogRegTask`` advances the whole population's flat ``[C, D]``
 blocks (``w`` then ``b``, D = d + 1) by up to ``block`` single-sample
-SGD steps in one call.  The reference's ``vmap``-of-``scan`` becomes a
-Python loop over the block steps on ``[C, D]`` tensors, masked by
-``j < n[c]``.  Sample draws are addressed by (client, round, iteration)
-exactly as ``LogRegTask`` derives them, and drawn for all ``[C, block]``
-steps before the loop.
+SGD steps in one call.  The reference's ``vmap``-of-``scan`` becomes one
+``cohort_logreg_block`` launch on the card (its plain twin on the CPU),
+which runs each client's own ``n[c]`` steps and no more.  Sample draws
+are addressed by (client, round, iteration) exactly as ``LogRegTask``
+derives them, and drawn for all ``[C, block]`` steps before the launch.
 """
 from __future__ import annotations
 
 import copy
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch import prng
 from repro_torch.core.tasks import LogRegTask
-from repro_torch.models import logreg
-
-
-def _clip_pairs(gw: torch.Tensor, gb: torch.Tensor, clip: float
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's ``clip_tree`` of each client's (w, b) gradient
-    pair, over the client axis: gw [C, d], gb [C], the norm over ``w``
-    and ``b`` together, summed in the reference's leaf order (``b``
-    first)."""
-    norm = torch.sqrt(gb * gb + (gw * gw).sum(dim=-1))
-    scale = 1.0 / torch.clamp(norm / clip, min=1.0)
-    return gw * scale[..., None], gb * scale
+from repro_torch.kernels.cohort_block import logreg_block
 
 
 def _client_view(task, lo: int, hi: int):
@@ -48,6 +37,10 @@ def _client_view(task, lo: int, hi: int):
 class CohortLogRegTask:
     """Whole-population view of ``LogRegTask`` (the paper's experiments)
     on ``device``."""
+
+    #: the device engine's span recorder (``DeviceCohortEngine.spans``);
+    #: each kernel launch of ``run_block`` is appended to its ``launches``
+    spans = None
 
     def __init__(self, task: LogRegTask, n_clients: int, *, seed: int = 0,
                  device=None):
@@ -100,26 +93,13 @@ class CohortLogRegTask:
 
         w, U: [C, D]; i, h, n: [C] int (round, in-round offset,
         iterations to take this call); eta: [C] f32 round step sizes.
-        Steps j >= n[c] are masked no-ops (gradient times 0)."""
+        Client ``c`` takes ``min(n[c], block)`` steps; the rows of a
+        client with ``n[c] = 0`` come back unchanged."""
         if idx is None:
             idx = self.sample_idx(i, h, block)
-        d = self.d_feat
         l2, clip = self.task.l2, self.task.dp_clip
-        pw, pb = w[:, :d], w[:, d]
-        uw, ub = U[:, :d], U[:, d]
-        eta_w = eta[:, None]
-        for j in range(block):
-            ij = idx[:, j]
-            gw, gb = logreg.per_example_grad(pw, pb, self.X[ij], self.y[ij],
-                                             l2)
-            if clip > 0.0:
-                gw, gb = _clip_pairs(gw, gb, clip)
-            act = (j < n).to(torch.float32)
-            gw = act[:, None] * gw
-            gb = act * gb
-            uw = uw + gw
-            ub = ub + gb
-            pw = pw - eta_w * gw
-            pb = pb - eta * gb
-        return (torch.cat([pw, pb[:, None]], dim=1),
-                torch.cat([uw, ub[:, None]], dim=1))
+        if self.spans is not None and w.is_cuda:
+            self.spans.launches.append(("cohort_logreg_block", dict(
+                C=w.shape[0], D=w.shape[1], b=block, clip=clip, l2=l2)))
+        return logreg_block(w, U, idx, n, eta, self.X, self.y, l2=l2,
+                            clip=clip)

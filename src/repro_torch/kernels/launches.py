@@ -11,7 +11,7 @@ LAUNCHES: Dict[str, int] = {"bucket_apply": 0, "tick_deliver": 0,
                             "tick_scatter_finish": 0, "cohort_clip_noise": 0,
                             "cohort_clip_noise_prng": 0,
                             "clip_accumulate": 0, "flash_attention": 0,
-                            "ssd_scan": 0}
+                            "ssd_scan": 0, "cohort_logreg_block": 0}
 
 
 def reset() -> None:

@@ -27,6 +27,11 @@ every row it writes in place, for the three strategies with and without
 a far tier, the flags set and clear and 0-2 fired broadcast rows, with
 -0.0 planted, at ragged, 16-byte-group and unaligned layouts and at a
 model-sized D.
+The logistic-regression client block (``cohort_logreg_block``) is held
+bit for bit to its twin ``logreg_block_ref`` at the path's shape and at
+small and ragged D, with n = 0, 1, b and ragged, clip and l2 on and off,
+and through a rank's row view of the task; at d 784 to the eager loop it
+replaced, its add order (``lane_sum``) to torch's row sum.
 """
 import numpy as np
 import pytest
@@ -105,7 +110,8 @@ def test_kernels_match_plain_versions(dev, C, D):
                         "tick_scatter": 1, "tick_scatter_rows": 0,
                         "tick_scatter_finish": 0, "cohort_clip_noise": 2,
                         "cohort_clip_noise_prng": 0, "clip_accumulate": 0,
-                        "flash_attention": 0, "ssd_scan": 0}
+                        "flash_attention": 0, "ssd_scan": 0,
+                        "cohort_logreg_block": 0}
 
 
 @pytest.mark.parametrize("C,D", [(1, 1), (37, 13), (130, 785)])
@@ -772,3 +778,150 @@ def test_server_apply_at_a_model_sized_D(dev):
     assert _bits_equal(inplace["ring"], ring)
     assert _bits_equal(inplace["ovf"], ovf)
     assert _bits_equal(inplace["bc"], bc)
+
+
+def _logreg_block_case(dev, C, D, b, n_kind, seed):
+    """Inputs of one block tick at C x D, b index columns: w and U with
+    -0.0 planted, client 1's row all zero (z == 0 exactly: the balanced
+    tie), ragged or uniform n."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    N = 3000
+    X = torch.randn(N, D - 1, generator=g, device=dev)
+    y = (torch.rand(N, generator=g, device=dev) > 0.5).float()
+    w = 0.1 * torch.randn(C, D, generator=g, device=dev)
+    U = 0.1 * torch.randn(C, D, generator=g, device=dev)
+    w[:, 0], U[:, -1] = -0.0, -0.0
+    if C > 1:
+        w[1] = 0.0
+    idx = torch.randint(0, N, (C, b), generator=g, device=dev)
+    if n_kind == "ragged":
+        n = torch.randint(0, b + 1, (C,), generator=g, device=dev,
+                          dtype=torch.int32)
+        n[:3] = torch.tensor([0, 1, b], dtype=torch.int32)[:C]
+    else:
+        n = torch.full((C,), {"zero": 0, "one": 1, "full": b}[n_kind],
+                       dtype=torch.int32, device=dev)
+    eta = 0.1 * torch.rand(C, generator=g, device=dev)
+    return w, U, idx, n, eta, X, y
+
+
+@pytest.mark.parametrize("C,D,b", [(4096, 785, 128), (130, 13, 40),
+                                   (37, 1, 8), (64, 33, 40), (5, 801, 3),
+                                   (6, 900, 3), (33, 131, 9)])
+@pytest.mark.parametrize("n_kind", ["ragged", "zero", "one", "full"])
+@pytest.mark.parametrize("clip,l2", [(0.0, 0.0), (0.1, 1.0 / 60000),
+                                     (0.1, 0.0), (0.0, 0.01)])
+def test_logreg_block_matches_its_twin(dev, C, D, b, n_kind, clip, l2):
+    """``cohort_logreg_block`` against its plain twin on the same CUDA
+    tensors, bit for bit, one launch; a client with n = 0 keeps its
+    rows' bits."""
+    from repro_torch.kernels import LAUNCHES, reset
+    from repro_torch.kernels.cohort_block import (logreg_block,
+                                                  logreg_block_ref)
+    args = _logreg_block_case(dev, C, D, b, n_kind, seed=C + D + b)
+    reset()
+    got = logreg_block(*args, l2=l2, clip=clip)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cohort_logreg_block"] == 1
+    want = logreg_block_ref(*args, l2=l2, clip=clip)
+    w, U, _, n = args[:4]
+    for k, p, old in zip(got, want, (w, U)):
+        assert _bits_equal(k, p)
+        idle = n == 0
+        assert _bits_equal(k[idle], old[idle])
+
+
+def test_logreg_block_rank_view_and_launch_record(dev):
+    """A rank's row view of the task (``for_clients``) runs the kernel on
+    its rows, bit for bit the whole population's block there and its
+    twin; each launch is in the recorder's ``launches``."""
+    from repro_torch.cohort.tasks import CohortLogRegTask
+    from repro_torch.core import LogRegTask
+    from repro_torch.kernels import LAUNCHES, reset
+    from repro_torch.kernels.cohort_block import logreg_block_ref
+    C, D, b = 4096, 785, 128
+    X, y = (t.cpu() for t in _logreg_block_case(dev, 1, D, 1, "one",
+                                                seed=3)[5:])
+    task = LogRegTask(X, y, l2=1.0 / 60000, dp_clip=0.1, sample_seed=5)
+    ct = CohortLogRegTask(task, C, device=dev)
+    w, U, _, n, eta, _, _ = _logreg_block_case(dev, C, D, b, "ragged",
+                                               seed=11)
+    i = torch.randint(0, 40, (C,), device=dev, dtype=torch.int32)
+    h = torch.randint(0, 60, (C,), device=dev, dtype=torch.int32)
+    lo, hi = 1000, 3000
+    view = ct.for_clients(lo, hi)
+    view.spans = type("Rec", (), {"launches": []})()
+    reset()
+    whole = ct.run_block(w, U, i, h, n, eta, b)
+    part = view.run_block(w[lo:hi], U[lo:hi], i[lo:hi], h[lo:hi], n[lo:hi],
+                          eta[lo:hi], b)
+    torch.cuda.synchronize()
+    assert LAUNCHES["cohort_logreg_block"] == 2
+    assert view.spans.launches == [("cohort_logreg_block", dict(
+        C=hi - lo, D=D, b=b, clip=0.1, l2=1.0 / 60000))]
+    twin = logreg_block_ref(w[lo:hi], U[lo:hi],
+                            view.sample_idx(i[lo:hi], h[lo:hi], b), n[lo:hi],
+                            eta[lo:hi], ct.X, ct.y, l2=1.0 / 60000, clip=0.1)
+    for a, p, t in zip(whole, part, twin):
+        assert _bits_equal(a[lo:hi], p)
+        assert _bits_equal(p, t)
+
+
+def test_logreg_block_refuses_more_features_than_it_holds(dev):
+    from repro_torch.kernels.cohort_block import logreg_block
+    from repro_torch.kernels.cohort_block.kernel import MAX_D
+    args = _logreg_block_case(dev, 8, MAX_D + 2, 4, "full", seed=1)
+    with pytest.raises(ValueError, match=f"at most {MAX_D} features"):
+        logreg_block(*args, l2=0.0, clip=0.1)
+
+
+@pytest.mark.parametrize("clip", [0.1, 1.0, 0.3, 3.7, 0.7, 1e-3, 2e-3,
+                                  0.03, 0.013])
+def test_card_divides_by_a_python_number_as_the_block_twin_does(dev, clip):
+    """On the card PyTorch divides a tensor by a Python number as a
+    product with the number's f32 reciprocal: the client block's clip
+    step (``ref.clip_scale``, and the kernel) takes that product, the
+    old eager block's and the benchmark reference's ``norm / clip``: the
+    reciprocal taken in double and rounded to f32 (at 1e-3, 2e-3, 0.03
+    and 0.013 the f32 reciprocal of the f32 clip is another number)."""
+    from repro_torch.kernels.cohort_block.ref import clip_scale, inv_clip
+    g = torch.Generator(device=dev).manual_seed(5)
+    norm = 3 * torch.rand(1 << 16, generator=g, device=dev)
+    assert _bits_equal(norm / clip, norm * inv_clip(clip))
+    assert _bits_equal(clip_scale(norm, clip),
+                       1.0 / torch.clamp(norm / clip, min=1.0))
+
+
+@pytest.mark.parametrize("m", [128, 200, 784, 1000])
+def test_lane_sum_is_torchs_row_sum_on_the_card(dev, m):
+    """For a contiguous f32 row whose length is a multiple of 4 and at
+    least 128, the client block's add order (``lane_sum``) is PyTorch's
+    own row sum on the card, bit for bit."""
+    from repro_torch.kernels.cohort_block import lane_sum
+    g = torch.Generator(device=dev).manual_seed(m)
+    v = torch.randn(4096, m, generator=g, device=dev) * 10.0 ** torch.randint(
+        -4, 5, (4096, m), generator=g, device=dev)
+    assert _bits_equal(lane_sum(v), v.sum(dim=-1))
+
+
+@pytest.mark.parametrize("clip,l2", [(0.1, 1.0 / 60000), (0.0, 0.0)])
+def test_logreg_block_is_the_old_eager_loop_at_d_784(dev, clip, l2):
+    """At the cell's width the kernel gives the bits of the eager masked
+    loop it replaced (torch's row sums, the clip as torch divides by a
+    Python number), but for the sign of an exact zero."""
+    from test_torch_cohort_block import masked_loop
+    from repro_torch.cohort.tasks import CohortLogRegTask
+    from repro_torch.core import LogRegTask
+    from repro_torch.data import make_binary_dataset
+    C, d, b = 4096, 784, 64
+    X, y = make_binary_dataset(3000, d, seed=9, noise=0.3)
+    ct = CohortLogRegTask(LogRegTask(X, y, l2=l2, dp_clip=clip,
+                                     sample_seed=3), C, device=dev)
+    w, U, _, n, eta, _, _ = _logreg_block_case(dev, C, d + 1, b, "ragged",
+                                               seed=17)
+    i = torch.randint(0, 40, (C,), device=dev, dtype=torch.int32)
+    h = torch.randint(0, 60, (C,), device=dev, dtype=torch.int32)
+    got = ct.run_block(w, U, i, h, n, eta, b)
+    want = masked_loop(ct, w, U, n, eta, b, ct.sample_idx(i, h, b))
+    for k, o in zip(got, want):
+        assert torch.equal(k, o)          # == : +0.0 and -0.0 alike
